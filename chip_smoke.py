@@ -6,24 +6,34 @@
 
 Phases, each fatal on failure:
 
-1. device and build: the card's name and power limit; the three CUDA
-   kernels built for sm_90a with nvcc, with each one's ptxas report;
+1. device and build: the card's name and power limit; the six CUDA
+   kernels built for sm_90a with nvcc, all at once, with each one's
+   ptxas report;
 2. each kernel against its plain PyTorch version on the card, at the
    bucket size, a ragged batch (bucket + 37) and edge inputs, compared
-   exactly after normalization mod p or n; a verify batch of edge
-   signatures (s = 0, off-curve x, u = 0, u = n - 1, r < p - n, high S)
-   through the kernels against the plain path and the exact-int oracle;
+   exactly after normalization mod p or n: every kernel engine's dual
+   multiplication on edge scalars (u = 0, 1, n - 1 on both sides, and
+   u1*G = -u2*Q) on the card, in the plain path and in the exact-int
+   oracle; a verify batch of edge signatures (s = 0, off-curve x, u = 0,
+   u = n - 1, r < p - n, high S, bad tag) under every kernel engine, on
+   the card, in the plain path and in the oracle;
 3. the main path: a synthetic gossip_store (612,500 signatures by
    default, with seeded corrupted signatures, an off-curve key, a bad key
    tag and oversized rows) through load_store -> check_crcs ->
-   verify_store(device="cuda"); the verdicts must be exactly "every
-   signature valid except the seeded faults", a sample must agree with
-   the exact-int host oracle, and every kernel's launch count must equal
-   the bucket count;
+   verify_store(device="cuda") under the default engine pallas_fbj+pp;
+   the verdicts must be exactly "every signature valid except the seeded
+   faults", a sample must agree with the exact-int host oracle, and each
+   of K1-K3's launch counts must equal the bucket count;
+3b. the same store replayed under each other kernel engine (pallas+pp,
+   pallas_v2+pp, pallas_glv+pp, pallas_fb+pp, pallas_fb): exactly the
+   seeded verdicts again, and the bucket count of launches for exactly
+   that engine's kernels, 0 for the others;
 4. timing: each kernel's ms per call at the bucket size (CUDA events),
    its plain version's ms and its bound.
 
-Prints one {"kernels": [...]} line, the nvidia-smi name and power limit,
+Prints one {"kernels": [...]} line (each kernel's launches counted on
+the replay of the first engine that runs it, named as "path"), the
+nvidia-smi name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when there is no CUDA device or no port package beside it.
 """
@@ -51,11 +61,23 @@ REPLACES = {
     "verify_prep": "lightning_tpu/crypto/pallas_secp.py:322",
     "build_tables": "lightning_tpu/crypto/pallas_secp.py:735",
     "glv_scan": "lightning_tpu/crypto/pallas_secp.py:627",
+    "glv_scan2": "lightning_tpu/crypto/pallas_secp.py:627",
+    "dual_mul_v2": "lightning_tpu/crypto/pallas_secp.py:462",
+    "dual_mul_planes": "lightning_tpu/crypto/pallas_secp.py:807",
 }
-SOURCES = {
-    "verify_prep": "lightning_tpu_torch/crypto/csrc/verify_prep.cu",
-    "build_tables": "lightning_tpu_torch/crypto/csrc/build_tables.cu",
-    "glv_scan": "lightning_tpu_torch/crypto/csrc/glv_scan.cu",
+SOURCES = {k: f"lightning_tpu_torch/crypto/csrc/{k}.cu" for k in REPLACES}
+WRAPPER = {"verify_prep": "verify_prep_core"}   # else the kernel's name
+
+# The kernels (by wrapper) each kernel engine launches once a bucket; the
+# "+pp" prep is K1.  pallas_fbj+pp is the main path.
+MAIN = "pallas_fbj+pp"
+ENGINE_KERNELS = {
+    MAIN: ("verify_prep_core", "build_tables", "glv_scan"),
+    "pallas+pp": ("verify_prep_core", "dual_mul_planes"),
+    "pallas_v2+pp": ("verify_prep_core", "dual_mul_v2"),
+    "pallas_glv+pp": ("verify_prep_core", "glv_scan2"),
+    "pallas_fb+pp": ("verify_prep_core", "build_tables", "glv_scan2"),
+    "pallas_fb": ("build_tables", "glv_scan2"),
 }
 
 
@@ -144,28 +166,102 @@ def compare_k3(H, F, d2l, d2h, gidx, bx, by, flip):
     tab = H.build_tables(bx, by, flip)
     got = H.glv_scan(d2l, d2h, gidx, tab)
     want = H.glv_scan_plain(d2l, d2h, gidx, *H.tables_to_limbs(tab))
+    return point_mismatches(F, got, want)
+
+
+def rand_words(gen, shape, dev, torch):
+    """Random canonical field elements (< 2^255 < p) as int32 kernel
+    words, shape (..., 8, B)."""
+    w = gen.integers(0, 2**32, shape, dtype=np.uint32)
+    w[..., 7, :] &= 0x7FFFFFFF
+    return torch.as_tensor(w.view(np.int32), device=dev)
+
+
+def point_mismatches(F, got, want):
     res = [mismatches(F, F.FP, g, w) for g, w in zip(got, want)]
     return sum(r[0] for r in res), max(r[1] for r in res)
 
 
-def dual_mul_edges(H, F, ref, dev):
-    """u = 0 and u = n - 1 through K2 + K3 against the plain path."""
-    us = [0, ref.N - 1, 1, 0, ref.N - 1, 12345]
-    vs = [ref.N - 1, 0, ref.N - 1, 0, ref.N - 1, 0]
+def k4_inputs(gen, B, dev, H, F, torch):
+    bx, by, flip = k2_inputs(gen, B, dev, F, torch)
+    d2l, d2h = (torch.as_tensor(gen.integers(0, 16, (33, B)), device=dev)
+                for _ in range(2))
+    g1, g2 = (rand_words(gen, (33, 3, 8, B), dev, torch) for _ in range(2))
+    return d2l, d2h, H.build_tables(bx, by, flip), g1, g2
+
+
+def compare_k4(H, F, d2l, d2h, tab, g1, g2):
+    got = H.glv_scan2(d2l, d2h, tab, g1, g2)
+    want = H.glv_scan2_plain(d2l, d2h, *H.tables_to_limbs(tab), g1, g2)
+    return point_mismatches(F, got, want)
+
+
+def k5_inputs(gen, B, dev, torch):
+    d2 = torch.as_tensor(gen.integers(0, 16, (64, B)), device=dev)
+    return (d2, rand_words(gen, (16, 3, 8, B), dev, torch),
+            rand_words(gen, (64, 3, 8, B), dev, torch))
+
+
+def compare_k5(H, F, d2, qtab, gs):
+    return point_mismatches(F, H.dual_mul_v2(d2, qtab, gs),
+                            H.dual_mul_v2_plain(d2, qtab, gs))
+
+
+def k6_inputs(gen, B, dev, torch):
+    return tuple(rand_words(gen, (64, 3, 8, B), dev, torch)
+                 for _ in range(2))
+
+
+def compare_k6(H, F, qs, gs):
+    return point_mismatches(F, H.dual_mul_planes(qs, gs),
+                            H.dual_mul_planes_plain(qs, gs))
+
+
+def engine_edges(E, F, ref, dev, engine):
+    """One kernel engine's dual multiplication on edge scalars: the
+    inputs of tests/test_pallas_secp.py:81-84 (default_rng(8); u = 0, 1
+    and n - 1 on both sides), a row with u1*G = -u2*Q and rows of
+    u = 0 / n - 1 against one key, on the card against the plain path
+    on the CPU, and both against the exact-int oracle.  Returns
+    (mismatching rows, max |limb difference|, rows off the oracle)."""
+    rng = np.random.default_rng(8)
+    k1s = [0, 1, ref.N - 1] + [int.from_bytes(rng.bytes(32), "big") % ref.N
+                               for _ in range(5)]
+    k2s = [1, 0, ref.N - 1] + [int.from_bytes(rng.bytes(32), "big") % ref.N
+                               for _ in range(5)]
+    pts = [ref.pubkey_create(int.from_bytes(rng.bytes(32), "big") % ref.N
+                             or 1) for _ in range(8)]
+    k1s.append(12345)
+    k2s.append((ref.N - 12345) * pow(7, -1, ref.N) % ref.N)
+    pts.append(ref.pubkey_create(7))                  # u1*G = -u2*Q
     q = ref.pubkey_create(0xC0FFEE)
-    u1, u2 = F.from_int_array(us, dev), F.from_int_array(vs, dev)
-    qx = F.from_int_array([q.x] * len(us), dev)
-    qy = F.from_int_array([q.y] * len(us), dev)
-    got = H.dual_mul_fbj(u1, u2, qx, qy)
-    cpu = [t.cpu() for t in (u1, u2, qx, qy)]
-    want = H.dual_mul_fbj(*cpu)
-    res = [mismatches(F, F.FP, g.cpu(), w) for g, w in zip(got, want)]
-    return sum(r[0] for r in res), max(r[1] for r in res)
+    for a, b in ((0, ref.N - 1), (ref.N - 1, 0), (0, 0), (ref.N - 1,
+                                                          ref.N - 1)):
+        k1s.append(a)
+        k2s.append(b)
+        pts.append(q)
+    args = [F.from_int_array(v) for v in (k1s, k2s, [p.x for p in pts],
+                                          [p.y for p in pts])]
+    fn = E.resolve_dual_mul(E.resolve_engine_names(engine)[0])
+    got = [t.cpu() for t in fn(*(a.to(dev) for a in args))]
+    want = fn(*args)
+    bad, err = point_mismatches(F, got, want)
+    off = 0
+    X, Y, Z = (F.to_int_list(F.normalize(F.FP, c)) for c in got)
+    for i, (a, b, p) in enumerate(zip(k1s, k2s, pts)):
+        e = ref.point_add(ref.point_mul(a, ref.G), ref.point_mul(b, p))
+        if e.inf:
+            off += Z[i] != 0
+        else:
+            zi = pow(Z[i], -1, ref.P) if Z[i] else 0
+            off += (X[i] * zi % ref.P, Y[i] * zi % ref.P) != (e.x, e.y)
+    return bad, err, off
 
 
-def verify_edges(H, S, F, ref, dev, torch):
-    """Edge signatures through the card's verify, the plain verify on
-    the CPU and the exact-int oracle: all three must agree."""
+def verify_edges(E, S, F, ref, dev, torch, engine):
+    """Edge signatures through the card's verify under `engine`, the
+    plain verify on the CPU and the exact-int oracle: all three must
+    agree."""
     d = 0xA11CE
     pk = ref.pubkey_serialize(ref.pubkey_create(d))
     z = 0x1234567890ABCDEF << 64
@@ -192,10 +288,10 @@ def verify_edges(H, S, F, ref, dev, torch):
         zt = F.from_bytes_be_dev(torch.as_tensor(zb, device=device))
         sg = torch.as_tensor(sig, device=device)
         pb = torch.as_tensor(pub, device=device)
-        ok = H.ecdsa_verify_kernel(
+        ok = E.ecdsa_verify_kernel(
             zt, F.from_bytes_be_dev(sg[:, :32]),
             F.from_bytes_be_dev(sg[:, 32:]), F.from_bytes_be_dev(pb[:, 1:]),
-            pb[:, 0].to(torch.int64) & 1)
+            pb[:, 0].to(torch.int64) & 1, engine)
         return ok.cpu().numpy() & tag
 
     return run(dev), run("cpu"), S.host_verify_batch(zb, sig, pub)
@@ -244,6 +340,7 @@ def main(argv=None) -> int:
         return 2
     try:
         from lightning_tpu_torch.crypto import _build
+        from lightning_tpu_torch.crypto import engines as E
         from lightning_tpu_torch.crypto import field as F
         from lightning_tpu_torch.crypto import hopper_secp as H
         from lightning_tpu_torch.crypto import ref_python as ref
@@ -288,17 +385,31 @@ def main(argv=None) -> int:
                                                          torch)))
         note("glv_scan", compare_k3(H, F, *k3_inputs(gen, B, dev, H, F,
                                                      torch)))
+        note("glv_scan2", compare_k4(H, F, *k4_inputs(gen, B, dev, H, F,
+                                                      torch)))
+        note("dual_mul_v2", compare_k5(H, F, *k5_inputs(gen, B, dev, torch)))
+        note("dual_mul_planes", compare_k6(H, F, *k6_inputs(gen, B, dev,
+                                                            torch)))
         torch.cuda.synchronize()
         log(f"compare B={B}: " + json.dumps(result))
     note("verify_prep", compare_k1(H, F, *k1_edges(dev, F, ref)))
-    e = dual_mul_edges(H, F, ref, dev)
-    note("build_tables", e)
-    note("glv_scan", e)
-    card_v, plain_v, oracle_v = verify_edges(H, S, F, ref, dev, torch)
-    log(f"edge verdicts card {card_v.astype(int).tolist()} plain "
-        f"{plain_v.astype(int).tolist()} oracle {oracle_v.astype(int).tolist()}")
-    assert (card_v == plain_v).all() and (card_v == oracle_v).all() \
-        and card_v[0], "edge verdicts disagree"
+    by_wrapper = {WRAPPER.get(k, k): k for k in SOURCES}
+    for engine, kernels in ENGINE_KERNELS.items():
+        if not engine.endswith("+pp"):
+            continue
+        bad, err, off = engine_edges(E, F, ref, dev, engine)
+        log(f"edge dual mul {engine}: {bad} rows differ from the plain "
+            f"path, {off} from the oracle")
+        assert off == 0, f"{engine}: edge dual mul off the oracle"
+        for w in kernels[1:]:
+            note(by_wrapper[w], (bad, err))
+        card_v, plain_v, oracle_v = verify_edges(E, S, F, ref, dev, torch,
+                                                 engine)
+        log(f"edge verdicts {engine}: card {card_v.astype(int).tolist()} "
+            f"plain {plain_v.astype(int).tolist()} oracle "
+            f"{oracle_v.astype(int).tolist()}")
+        assert (card_v == plain_v).all() and (card_v == oracle_v).all() \
+            and card_v[0], f"{engine}: edge verdicts disagree"
     log("kernels vs plain: " + json.dumps(result))
     assert all(v["mismatch"] == 0 for v in result.values()), \
         "a kernel disagrees with its plain version"
@@ -313,26 +424,37 @@ def main(argv=None) -> int:
     t_synth = time.perf_counter() - t0
     log(f"synth: {info['sigs']} signatures ({args.channels} channels, "
         f"{args.nodes} nodes, 2 updates/channel) in {t_synth:.1f} s")
-    torch.cuda.synchronize()
-    H.reset_launches()
-    t0 = time.perf_counter()
-    idx = ST.load_store(path)
-    crc_ok = idx.check_crcs()
-    res = V.verify_store(idx, args.bucket, device="cuda")
-    t_replay = time.perf_counter() - t0
-    counts = H.launch_counts()
-    assert crc_ok.all(), "store crc mismatch"
     expected = info["expected_sig_ok"]
-    n_false = int((~expected).sum())
-    wrong = np.nonzero(res.sig_ok != expected)[0]
-    log(f"replay: {res.n_sigs} signatures, {res.buckets} buckets, "
-        f"{n_false} expected invalid, {len(wrong)} wrong verdicts, "
-        f"{t_replay:.2f} s ({res.n_sigs / t_replay:.0f} sig/s; extract "
-        f"{res.seconds['extract']:.2f} s, verify "
-        f"{res.seconds['verify']:.2f} s) on {card}")
-    assert res.n_sigs == info["sigs"] and len(wrong) == 0, \
-        f"wrong verdicts at {wrong[:20].tolist()}"
-    assert (res.ca_valid == info["expected_ca_valid"]).all()
+
+    def replay(engine):
+        """load_store -> check_crcs -> verify_store under `engine`, with
+        the launch counters set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        H.reset_launches()
+        t0 = time.perf_counter()
+        idx = ST.load_store(path)
+        crc_ok = idx.check_crcs()
+        res = V.verify_store(idx, args.bucket, device="cuda", engine=engine)
+        t_replay = time.perf_counter() - t0
+        counts = H.launch_counts()
+        assert crc_ok.all(), "store crc mismatch"
+        wrong = np.nonzero(res.sig_ok != expected)[0]
+        log(f"replay {engine}: {res.n_sigs} signatures, {res.buckets} "
+            f"buckets, {int((~expected).sum())} expected invalid, "
+            f"{len(wrong)} wrong verdicts, {t_replay:.2f} s "
+            f"({res.n_sigs / t_replay:.0f} sig/s; extract "
+            f"{res.seconds['extract']:.2f} s, verify "
+            f"{res.seconds['verify']:.2f} s) on {card}")
+        assert res.n_sigs == info["sigs"] and len(wrong) == 0, \
+            f"{engine}: wrong verdicts at {wrong[:20].tolist()}"
+        assert (res.ca_valid == info["expected_ca_valid"]).all()
+        log(f"launches under {engine}: {json.dumps(counts)}")
+        want = {k: res.buckets * (k in ENGINE_KERNELS[engine])
+                for k in counts}
+        assert counts == want, f"{engine}: launch counts"
+        return idx, res, counts
+
+    idx, res, counts = replay(MAIN)
     sample = np.unique(np.concatenate([
         gen.choice(res.n_sigs, 256, replace=False),
         np.nonzero(~expected)[0][:64]]))
@@ -341,12 +463,16 @@ def main(argv=None) -> int:
     log(f"host oracle sample: {agree}/{len(sample)} agree "
         f"({int((~host).sum())} invalid in the sample)")
     assert agree == len(sample), "host oracle disagrees"
-    log(f"launches on the main path: {json.dumps(counts)} "
-        f"(buckets {res.buckets})")
-    assert counts == {"verify_prep_core": res.buckets,
-                      "build_tables": res.buckets,
-                      "glv_scan": res.buckets}, "launch counts"
     del idx, res
+
+    # -- phase 3b: the other kernel engines on the same store
+    launches = {k: (MAIN, counts[k]) for k in ENGINE_KERNELS[MAIN]}
+    for engine in ENGINE_KERNELS:
+        if engine == MAIN:
+            continue
+        _, _, c = replay(engine)
+        for k in ENGINE_KERNELS[engine]:
+            launches.setdefault(k, (engine, c[k]))
     tmp.cleanup()
 
     # -- phase 4: timing at the bucket size
@@ -355,15 +481,20 @@ def main(argv=None) -> int:
     qx, s = k1_inputs(gen, Bk, dev, F)
     bx, by, flip = k2_inputs(gen, Bk, dev, F, torch)
     d2l, d2h, gidx, *_ = k3_inputs(gen, Bk, dev, H, F, torch)
+    _, _, _, g1, g2 = k4_inputs(gen, Bk, dev, H, F, torch)
+    d2, qtab, gs = k5_inputs(gen, Bk, dev, torch)
+    qs, _ = k6_inputs(gen, Bk, dev, torch)
     x8, s8 = F.to_u32x8(qx), F.to_u32x8(s)
     o8 = [torch.empty_like(x8) for _ in range(3)]
     bx8, by8 = F.to_u32x8(bx), F.to_u32x8(by)
     f32 = flip.to(torch.int32).contiguous()
     tab = torch.empty((6, 16, 8, Bk), dtype=torch.int32, device=dev)
     dig = [t.to(torch.int32).contiguous() for t in (d2l, d2h, gidx)]
+    d2_32 = d2.to(torch.int32).contiguous()
     jt = H._joint_table_u32(str(dev))
     H._launch("build_tables", bx8, by8, f32, tab, B=Bk)
     lohi = H.tables_to_limbs(tab)
+    pt_bytes = 3 * 32             # one point: three 8-word coordinates
     runs = {
         "verify_prep": (lambda: H._launch("verify_prep", x8, s8, *o8, B=Bk),
                         lambda: H.verify_prep_plain(qx, s),
@@ -374,7 +505,22 @@ def main(argv=None) -> int:
                          Bk * (2 * 32 + 4 + 6 * 16 * 32)),
         "glv_scan": (lambda: H._launch("glv_scan", *dig, tab, jt, *o8, B=Bk),
                      lambda: H.glv_scan_plain(d2l, d2h, gidx, *lohi),
-                     Bk * (3 * 33 * 4 + 6 * 16 * 32 + 3 * 32) + jt.numel() * 4),
+                     Bk * (3 * 33 * 4 + 6 * 16 * 32 + pt_bytes)
+                     + jt.numel() * 4),
+        "glv_scan2": (lambda: H._launch("glv_scan2", *dig[:2], tab, g1, g2,
+                                        *o8, B=Bk),
+                      lambda: H.glv_scan2_plain(d2l, d2h, *lohi, g1, g2),
+                      Bk * (2 * 33 * 4 + 6 * 16 * 32 + 2 * 33 * pt_bytes
+                            + pt_bytes)),
+        "dual_mul_v2": (lambda: H._launch("dual_mul_v2", d2_32, qtab, gs, *o8,
+                                          B=Bk),
+                        lambda: H.dual_mul_v2_plain(d2, qtab, gs),
+                        Bk * (64 * 4 + 16 * pt_bytes + 64 * pt_bytes
+                              + pt_bytes)),
+        "dual_mul_planes": (lambda: H._launch("dual_mul_planes", qs, gs, *o8,
+                                              B=Bk),
+                            lambda: H.dual_mul_planes_plain(qs, gs),
+                            Bk * (2 * 64 * pt_bytes + pt_bytes)),
     }
     kernels = []
     for k, (kern, plain, nbytes) in runs.items():
@@ -384,10 +530,10 @@ def main(argv=None) -> int:
         log(f"time {k}: {ms:.4f} ms/call at B={Bk}, plain {plain_ms:.1f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; field ops {opc[k]}; SM clock "
             f"{clock / 1e6:.0f} MHz)")
+        on_path, n = launches[WRAPPER.get(k, k)]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k],
-            "launches": counts[{"verify_prep": "verify_prep_core"}.get(k, k)],
+            "replaces": REPLACES[k], "launches": n, "path": on_path,
             "max_abs_err": result[k]["err"], "mismatches":
             result[k]["mismatch"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})

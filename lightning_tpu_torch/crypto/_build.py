@@ -23,6 +23,9 @@ SOURCES = {
     "verify_prep": "verify_prep.cu",
     "build_tables": "build_tables.cu",
     "glv_scan": "glv_scan.cu",
+    "glv_scan2": "glv_scan2.cu",
+    "dual_mul_v2": "dual_mul_v2.cu",
+    "dual_mul_planes": "dual_mul_planes.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

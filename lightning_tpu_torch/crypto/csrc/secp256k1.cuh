@@ -429,7 +429,7 @@ HD void fe_store(uint32_t *base, long long stride, const uint32_t a[8]) {
 }
 
 // ---------------------------------------------------------------------------
-// The per-signature bodies of the three kernels
+// The per-signature bodies of the six kernels
 
 // K1: y = sqrt(x^3 + 7), d = y^2 - (x^3 + 7), w = s^-1 mod n.
 HD void verify_prep_one(const uint32_t qx[8], const uint32_t s[8],
@@ -528,6 +528,78 @@ HD void glv_scan_one(const int32_t *d2l, const int32_t *d2h,
         tab_load(q, tab, stride, 1, d2h[w * stride] & 15);
         pt_add(acc, acc, q);
         joint_load(q, jt, gidx[w * stride] & 1023);
+        pt_add(acc, acc, q);
+    }
+}
+
+// Word planes, the points K4-K6 take: entry j of an (n, 3, 8, B) plane
+// tensor (entry, coordinate, word, signature); callers pass base offset
+// by the signature.
+HD void plane_load(pt &o, const uint32_t *planes, long long stride, int j) {
+    const uint32_t *b = planes + (long long)j * 24 * stride;
+    fe_load(o.x, b, stride);
+    fe_load(o.y, b + 8 * stride, stride);
+    fe_load(o.z, b + 16 * stride, stride);
+}
+
+// K4: the 33-window GLV scan with separate fixed-base additions,
+// acc = 16 acc + Qlo[d2l] + Qhi[d2h] + G1[w] + G2[w], from infinity.
+// Digits are (33, B) planes, MSB first; g1, g2 the pre-selected,
+// pre-signed G and phi(G) points as (33, 3, 8, B) planes.
+HD void glv_scan2_one(const int32_t *d2l, const int32_t *d2h,
+                      long long stride, const uint32_t *tab,
+                      const uint32_t *g1, const uint32_t *g2, pt &acc) {
+    pt q;
+    pt_set_inf(acc);
+#pragma unroll 1
+    for (int w = 0; w < GLV_WINDOWS; w++) {
+#pragma unroll 1
+        for (int k = 0; k < 4; k++) pt_double(acc, acc);
+        tab_load(q, tab, stride, 0, d2l[w * stride] & 15);
+        pt_add(acc, acc, q);
+        tab_load(q, tab, stride, 1, d2h[w * stride] & 15);
+        pt_add(acc, acc, q);
+        plane_load(q, g1, stride, w);
+        pt_add(acc, acc, q);
+        plane_load(q, g2, stride, w);
+        pt_add(acc, acc, q);
+    }
+}
+
+#define DUAL_WINDOWS 64
+
+// K5: the 64-window scan without GLV, acc = 16 acc + Qtab[d2] + G[w],
+// from infinity.  d2 is a (64, B) digit plane, MSB first; qtab the
+// per-key table v*Q as (16, 3, 8, B) planes, selected here; gs the
+// pre-selected G points as (64, 3, 8, B) planes.
+HD void dual_mul_v2_one(const int32_t *d2, long long stride,
+                        const uint32_t *qtab, const uint32_t *gs, pt &acc) {
+    pt q;
+    pt_set_inf(acc);
+#pragma unroll 1
+    for (int w = 0; w < DUAL_WINDOWS; w++) {
+#pragma unroll 1
+        for (int k = 0; k < 4; k++) pt_double(acc, acc);
+        plane_load(q, qtab, stride, d2[w * stride] & 15);
+        pt_add(acc, acc, q);
+        plane_load(q, gs, stride, w);
+        pt_add(acc, acc, q);
+    }
+}
+
+// K6: the 64-window scan over pre-selected points,
+// acc = 16 acc + Q[w] + G[w], from infinity; qs, gs are (64, 3, 8, B).
+HD void dual_mul_planes_one(const uint32_t *qs, const uint32_t *gs,
+                            long long stride, pt &acc) {
+    pt q;
+    pt_set_inf(acc);
+#pragma unroll 1
+    for (int w = 0; w < DUAL_WINDOWS; w++) {
+#pragma unroll 1
+        for (int k = 0; k < 4; k++) pt_double(acc, acc);
+        plane_load(q, qs, stride, w);
+        pt_add(acc, acc, q);
+        plane_load(q, gs, stride, w);
         pt_add(acc, acc, q);
     }
 }

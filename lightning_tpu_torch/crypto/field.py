@@ -240,6 +240,11 @@ def add(mod: Modulus, a, b):
     return _reduce(mod, limbs, 2 * STORED_VMAX, 2 * STORED_LIMB_MAX)
 
 
+def add3(mod: Modulus, a, b, c):
+    limbs = _carry_once(a + b + c, NLIMBS + 1)
+    return _reduce(mod, limbs, 3 * STORED_VMAX, 3 * STORED_LIMB_MAX)
+
+
 def sub(mod: Modulus, a, b):
     neg = _const(mod.name + '.neg', mod.neg_limbs, a)
     nn = len(mod.neg_limbs)
@@ -255,6 +260,10 @@ def mul(mod: Modulus, a, b):
     colmax = NLIMBS * (LIMB_MASK + (prodmax >> LIMB_BITS))
     limbs = _carry_once(cols, 2 * NLIMBS + 1)
     return _reduce(mod, limbs, STORED_VMAX * STORED_VMAX, colmax)
+
+
+def sqr(mod: Modulus, a):
+    return mul(mod, a, a)
 
 
 def mul_small(mod: Modulus, a, k: int):
@@ -314,6 +323,66 @@ def eq(mod: Modulus, a, b):
 def select(cond, a, b):
     """cond: bool (...,); a, b: (..., NLIMBS)."""
     return torch.where(cond[..., None], a, b)
+
+
+def pow_const(mod: Modulus, a, e: int):
+    """a^e for a static exponent e >= 1: square-and-multiply over its
+    bits, most significant first."""
+    assert e >= 1
+    acc = a
+    for i in range(e.bit_length() - 2, -1, -1):
+        acc = mul(mod, acc, acc)
+        if (e >> i) & 1:
+            acc = mul(mod, acc, a)
+    return acc
+
+
+def inv(mod: Modulus, a):
+    """Fermat inversion a^(m-2) by 256 square-and-multiply steps from 1
+    (so inv(0) = 0)."""
+    acc = one(a.shape[:-1], a.device)
+    e = mod.m - 2
+    for i in range(255, -1, -1):
+        acc = mul(mod, acc, acc)
+        if (e >> i) & 1:
+            acc = mul(mod, acc, a)
+    return acc
+
+
+def _scan_products(mod: Modulus, a, reverse: bool = False):
+    """Inclusive products along axis 0 (suffix products if reverse) by
+    Hillis-Steele doubling: ceil(log2 B) batched multiplications."""
+    x = a.flip(0) if reverse else a
+    d = 1
+    while d < x.shape[0]:
+        x = torch.cat([x[:d], mul(mod, x[d:], x[:-d])])
+        d *= 2
+    return x.flip(0) if reverse else x
+
+
+def inv_batch(mod: Modulus, a):
+    """Batched inversion by Montgomery's trick: prefix and suffix product
+    sweeps and ONE Fermat inversion of the total, then
+    inv(a_i) = prefix_{i-1} * suffix_{i+1} * inv(total).  Zero inputs
+    count as 1 in the sweeps and give 0 (the inv(0) = 0 convention).
+    a: (B, NLIMBS); any other rank takes the per-element Fermat chain."""
+    if a.ndim != 2:
+        return inv(mod, a)
+    z = is_zero(mod, a)
+    a1 = select(z, one(a.shape[:-1], a.device), a)
+    pre = _scan_products(mod, a1)
+    suf = _scan_products(mod, a1, reverse=True)
+    total_inv = inv(mod, pre[-1:])
+    one_row = one((1,), a.device)
+    before = torch.cat([one_row, pre[:-1]])
+    after = torch.cat([suf[1:], one_row])
+    out = mul(mod, mul(mod, before, after), total_inv.expand_as(a))
+    return select(z, torch.zeros_like(a), out)
+
+
+def odd(a):
+    """Parity of a canonical (normalized) value."""
+    return (a[..., 0] & 1) != 0
 
 
 def nonzero(a):

@@ -1,4 +1,4 @@
-"""The verify path's three hand-written CUDA kernels: wrappers, plain
+"""The verify engines' six hand-written CUDA kernels: wrappers, plain
 versions and launch counters.
 
 Each kernel has, beside its wrapper:
@@ -16,14 +16,20 @@ tensors it launches its kernel or raises: there is no fallback.
 | K1 csrc/verify_prep.cu | ``verify_prep_core`` | ``_verify_prep_kernel``, pallas_call :322 |
 | K2 csrc/build_tables.cu | ``build_tables`` | ``_build_tables_kernel``, pallas_call :735 |
 | K3 csrc/glv_scan.cu | ``glv_scan`` | ``_make_glv_kernel(1)``, pallas_call :627 |
+| K4 csrc/glv_scan2.cu | ``glv_scan2`` | ``_make_glv_kernel(2)``, pallas_call :627 |
+| K5 csrc/dual_mul_v2.cu | ``dual_mul_v2`` | ``_dual_mul_kernel_v2``, pallas_call :462 |
+| K6 csrc/dual_mul_planes.cu | ``dual_mul_planes`` | ``_dual_mul_kernel``, pallas_call :807 |
 
-All three are bound by 32-bit integer multiplies: ``field_op_counts``
+All six are bound by 32-bit integer multiplies: ``field_op_counts``
 counts the field operations of each plain version (the kernels repeat
 them op for op) and ``PRODUCTS`` holds the fewest 32-bit products each
 needs; their bound is computed from the two.  The kernels
 keep field elements as 8 x 32-bit words (``field.to_u32x8``), limbs first
 with the batch fastest; the conversion from and to radix-2^13 limbs is
-plain torch in the wrappers.
+plain torch in the wrappers.  K4-K6 take their points as word planes,
+(n, 3, 8, B) int32: entry, coordinate, word, signature.  Which operands
+are selected in the kernel and which outside is what tells the engines
+apart (``engines.py``), so each kernel keeps its TPU twin's contract.
 """
 from __future__ import annotations
 
@@ -85,6 +91,37 @@ def _launch(name: str, *tensors: torch.Tensor, B: int) -> None:
 def _u32x8(a: torch.Tensor) -> torch.Tensor:
     """Any representative mod p -> canonical (8, B) kernel words."""
     return F.to_u32x8(F.normalize(FP, a))
+
+
+# ---------------------------------------------------------------------------
+# Operand helpers; K4-K6 take points as word planes
+
+
+def to_words(a: torch.Tensor) -> torch.Tensor:
+    """Limbs (..., 20), any representative mod p -> canonical kernel
+    words (..., 8) int32."""
+    flat = F.to_u32x8(F.normalize(FP, a.reshape(-1, NLIMBS)))
+    return flat.T.reshape(*a.shape[:-1], 8)
+
+
+def _plane_point(planes: torch.Tensor, j: int):
+    """Entry j of (n, 3, 8, B) word planes -> a point of (B, 20) limbs."""
+    return tuple(F.from_u32x8(planes[j, c]) for c in range(3))
+
+
+def _expect(name: str, t: torch.Tensor, shape: tuple) -> None:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: operand of shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+
+
+def _scan_out(B: int, device) -> list[torch.Tensor]:
+    return [torch.empty((8, B), dtype=torch.int32, device=device)
+            for _ in range(3)]
+
+
+def _i32(*ts: torch.Tensor) -> list[torch.Tensor]:
+    return [t.to(torch.int32).contiguous() for t in ts]
 
 
 # ---------------------------------------------------------------------------
@@ -178,12 +215,19 @@ def tables_to_limbs(tab: torch.Tensor):
     return tuple(coords[:3]), tuple(coords[3:])
 
 
-def build_q_tables(qx, qy, s2l, s2h):
-    """Sign prep + K2: the lo base is (qx, +-qy) by the sign of m2l, and
-    the hi table flips y where the signs of m2l and m2h differ."""
-    qy_neg = F.sub(FP, torch.zeros_like(qy), qy)
-    byl = torch.where(s2l[:, None], qy_neg, qy)
-    return build_tables(qx, byl, (s2l ^ s2h).to(torch.int64))
+def tables_to_words(lo, hi) -> torch.Tensor:
+    """The plain layout (lo, hi), each three (16, B, 20) limb tensors,
+    -> the kernel's (6, 16, 8, B) table block (the inverse of
+    ``tables_to_limbs``)."""
+    return torch.stack([to_words(c) for c in (*lo, *hi)]) \
+        .permute(0, 1, 3, 2).contiguous()
+
+
+def as_tables(lo, hi):
+    """Per-key tables in the plain layout -> what ``build_tables``
+    returns on their device: (lo, hi) itself on the CPU, the word block
+    on the card."""
+    return tables_to_words(lo, hi) if _on_card(lo[0]) else (lo, hi)
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +255,7 @@ def glv_scan_plain(d2l, d2h, gidx, lo, hi):
     jt = _joint_table(d2l.device)
     ar = torch.arange(B, device=d2l.device)
     acc = S.point_inf((B,), d2l.device)
-    for w in range(GLV.NDIGITS_GLV):
+    for w in range(d2l.shape[0]):
         for _ in range(S.WINDOW):
             acc = S.point_double(acc)
         acc = S.point_add(acc, tuple(c[d2l[w], ar] for c in lo))
@@ -227,14 +271,12 @@ def glv_scan(d2l, d2h, gidx, tables):
     if not _on_card(d2l):
         return glv_scan_plain(d2l, d2h, gidx, *tables)
     B = d2l.shape[1]
-    if tables.shape != (6, 16, 8, B):
-        raise ValueError(f"glv_scan: tables {tuple(tables.shape)} do not "
-                         f"match a batch of {B}")
-    i32 = [t.to(torch.int32).contiguous() for t in (d2l, d2h, gidx)]
+    for t in (d2l, d2h, gidx):
+        _expect("glv_scan", t, (GLV.NDIGITS_GLV, B))
+    _expect("glv_scan", tables, (6, 16, 8, B))
     jt = _joint_table_u32(str(d2l.device))
-    out = [torch.empty((8, B), dtype=torch.int32, device=d2l.device)
-           for _ in range(3)]
-    _launch("glv_scan", *i32, tables, jt, *out, B=B)
+    out = _scan_out(B, d2l.device)
+    _launch("glv_scan", *_i32(d2l, d2h, gidx), tables, jt, *out, B=B)
     glv_scan.launches += 1
     return tuple(F.from_u32x8(o) for o in out)
 
@@ -242,61 +284,134 @@ def glv_scan(d2l, d2h, gidx, tables):
 glv_scan.launches = 0
 
 
-def glv_prep_joint(u1, u2):
-    """GLV split of both scalars, MSB-first digit planes (33, B) of the
-    two Q halves, their signs, and the joint-table index plane
-    g = d1l + 16 s1l + 32 (d1h + 16 s1h) that K3 gathers by."""
-    m1l, s1l, m1h, s1h = GLV.split(u1)
-    m2l, s2l, m2h, s2h = GLV.split(u2)
-
-    def plane(m):
-        return GLV.digits4(m).flip(-1).T.contiguous()
-
-    d1l, d1h = plane(m1l), plane(m1h)
-    gidx = (d1l + 16 * s1l.to(torch.int64)
-            + 32 * (d1h + 16 * s1h.to(torch.int64)))
-    return plane(m2l), plane(m2h), s2l, s2h, gidx
+# ---------------------------------------------------------------------------
+# K4: the 33-window GLV scan with separate G and phi(G) additions
 
 
-def dual_mul_fbj(u1, u2, qx, qy):
-    """u1*G + u2*Q through K2 and K3 (the JAX package's pallas_fbj
-    engine): canonical scalars and affine Q in, projective point out."""
-    d2l, d2h, s2l, s2h, gidx = glv_prep_joint(u1, u2)
-    tables = build_q_tables(qx, qy, s2l, s2h)
-    return glv_scan(d2l, d2h, gidx, tables)
+def glv_scan2_plain(d2l, d2h, lo, hi, g1, g2):
+    """Plain version of K4: 33 windows of acc = 16 acc + lo[d2l] +
+    hi[d2h] + g1[w] + g2[w] from infinity.  Digits are (33, B), most
+    significant window first; g1, g2 are the pre-selected, pre-signed G
+    and phi(G) points as (33, 3, 8, B) word planes."""
+    B = d2l.shape[1]
+    ar = torch.arange(B, device=d2l.device)
+    acc = S.point_inf((B,), d2l.device)
+    for w in range(d2l.shape[0]):
+        for _ in range(S.WINDOW):
+            acc = S.point_double(acc)
+        acc = S.point_add(acc, tuple(c[d2l[w], ar] for c in lo))
+        acc = S.point_add(acc, tuple(c[d2h[w], ar] for c in hi))
+        acc = S.point_add(acc, _plane_point(g1, w))
+        acc = S.point_add(acc, _plane_point(g2, w))
+    return acc
 
 
-def ecdsa_verify_kernel(z, r, s, qx, q_parity):
-    """Batched ECDSA verify through K1-K3.  z: (B, 20) hash limbs (raw
-    256-bit value); r, s: canonical signature scalars; qx: canonical
-    pubkey x limbs; q_parity: (B,) y parity.  Returns bool (B,); invalid
-    encodings give False."""
-    r_ok = F.lt_const(r, S.N_INT) & F.nonzero(r)
-    # libsecp256k1's verify rejects high-S outright: s <= (n-1)/2 only
-    s_ok = F.lt_const(s, (S.N_INT + 1) // 2) & F.nonzero(s)
-    q_ok = F.lt_const(qx, S.P_INT)
-    qy, on_curve, w = verify_prep(qx, q_parity, s)
-    u1 = F.normalize(FN, F.mul(FN, z, w))
-    u2 = F.normalize(FN, F.mul(FN, r, w))
-    Rx, _, Rz = dual_mul_fbj(u1, u2, qx, qy)
-    not_inf = ~F.is_zero(FP, Rz)
-    # projective x(R) = r (mod n) without inversion: x(R) = Rx / Rz and
-    # the candidates r' in {r, r + n} with r' < p
-    chk1 = F.eq(FP, Rx, S._mul(r, Rz))
-    r_plus_n = S._add(r, F.from_const(S.N_INT, r.shape[:-1], r.device))
-    small_r = F.lt_const(r, S.P_INT - S.N_INT)
-    chk2 = small_r & F.eq(FP, Rx, S._mul(r_plus_n, Rz))
-    return r_ok & s_ok & q_ok & on_curve & not_inf & (chk1 | chk2)
+def glv_scan2(d2l, d2h, tables, g1, g2):
+    """K4 wrapper: projective point as three (B, 20) limb tensors.
+    ``tables`` is a per-key table block in ``build_tables``'s layout for
+    the device (``as_tables`` makes one from limbs); g1, g2: (33, 3, 8, B)
+    int32 word planes."""
+    if not _on_card(d2l):
+        return glv_scan2_plain(d2l, d2h, *tables, g1, g2)
+    B = d2l.shape[1]
+    for t in (d2l, d2h):
+        _expect("glv_scan2", t, (GLV.NDIGITS_GLV, B))
+    _expect("glv_scan2", tables, (6, 16, 8, B))
+    for g in (g1, g2):
+        _expect("glv_scan2", g, (GLV.NDIGITS_GLV, 3, 8, B))
+    out = _scan_out(B, d2l.device)
+    _launch("glv_scan2", *_i32(d2l, d2h), tables, g1, g2, *out, B=B)
+    glv_scan2.launches += 1
+    return tuple(F.from_u32x8(o) for o in out)
 
 
-KERNELS = (verify_prep_core, build_tables, glv_scan)
+glv_scan2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the 64-window scan, Q table selected in the kernel
+
+
+def dual_mul_v2_plain(d2, qtab, gs):
+    """Plain version of K5: 64 windows of acc = 16 acc + qtab[d2[w]] +
+    gs[w] from infinity.  d2: (64, B) digits of u2, most significant
+    first; qtab: (16, 3, 8, B) word planes of v*Q; gs: (64, 3, 8, B)
+    word planes of the pre-selected G points."""
+    B = d2.shape[1]
+    ar = torch.arange(B, device=d2.device)
+    tab = [torch.stack([F.from_u32x8(qtab[v, c]) for v in range(16)])
+           for c in range(3)]
+    acc = S.point_inf((B,), d2.device)
+    for w in range(d2.shape[0]):
+        for _ in range(S.WINDOW):
+            acc = S.point_double(acc)
+        acc = S.point_add(acc, tuple(c[d2[w], ar] for c in tab))
+        acc = S.point_add(acc, _plane_point(gs, w))
+    return acc
+
+
+def dual_mul_v2(d2, qtab, gs):
+    """K5 wrapper: projective point as three (B, 20) limb tensors."""
+    if not _on_card(d2):
+        return dual_mul_v2_plain(d2, qtab, gs)
+    B = d2.shape[1]
+    _expect("dual_mul_v2", d2, (S.NDIGITS, B))
+    _expect("dual_mul_v2", qtab, (16, 3, 8, B))
+    _expect("dual_mul_v2", gs, (S.NDIGITS, 3, 8, B))
+    out = _scan_out(B, d2.device)
+    _launch("dual_mul_v2", *_i32(d2), qtab, gs, *out, B=B)
+    dual_mul_v2.launches += 1
+    return tuple(F.from_u32x8(o) for o in out)
+
+
+dual_mul_v2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the 64-window scan over pre-selected Q and G planes
+
+
+def dual_mul_planes_plain(qs, gs):
+    """Plain version of K6: 64 windows of acc = 16 acc + qs[w] + gs[w]
+    from infinity; qs, gs: (64, 3, 8, B) word planes of the pre-selected
+    Q and G points."""
+    B = qs.shape[-1]
+    acc = S.point_inf((B,), qs.device)
+    for w in range(qs.shape[0]):
+        for _ in range(S.WINDOW):
+            acc = S.point_double(acc)
+        acc = S.point_add(acc, _plane_point(qs, w))
+        acc = S.point_add(acc, _plane_point(gs, w))
+    return acc
+
+
+def dual_mul_planes(qs, gs):
+    """K6 wrapper: projective point as three (B, 20) limb tensors."""
+    if not _on_card(qs):
+        return dual_mul_planes_plain(qs, gs)
+    B = qs.shape[-1]
+    for t in (qs, gs):
+        _expect("dual_mul_planes", t, (S.NDIGITS, 3, 8, B))
+    out = _scan_out(B, qs.device)
+    _launch("dual_mul_planes", qs, gs, *out, B=B)
+    dual_mul_planes.launches += 1
+    return tuple(F.from_u32x8(o) for o in out)
+
+
+dual_mul_planes.launches = 0
+
+
+KERNELS = (verify_prep_core, build_tables, glv_scan, glv_scan2, dual_mul_v2,
+           dual_mul_planes)
 
 
 def field_op_counts() -> dict[str, dict[str, int]]:
     """Field operations per signature of each kernel, by kind (mul_p,
     sqr_p, mul_n, sqr_n, mul_small_p): its plain version run on one CPU
     signature with F.mul and F.mul_small counted; a product of a tensor
-    with itself counts as a squaring."""
+    with itself counts as a squaring.  The window scans run one window
+    and count it once per window of the kernel (every window does the
+    same operations)."""
     counts: dict[str, int] = {}
     real_mul, real_small = F.mul, F.mul_small
 
@@ -311,20 +426,29 @@ def field_op_counts() -> dict[str, dict[str, int]]:
 
     x, y = F.from_int_array([1]), F.from_int_array([2])
     flip = torch.zeros(1, dtype=torch.int64)
-    digits = torch.ones((GLV.NDIGITS_GLV, 1), dtype=torch.int64)
+    digit = torch.ones((1, 1), dtype=torch.int64)
     tabs = build_tables_plain(x, y, flip)
-    runs = {
-        "verify_prep": lambda: verify_prep_plain(x, y),
-        "build_tables": lambda: build_tables_plain(x, y, flip),
-        "glv_scan": lambda: glv_scan_plain(digits, digits, digits, *tabs),
+    point = torch.ones((1, 3, 8, 1), dtype=torch.int32)
+    qtab = torch.ones((16, 3, 8, 1), dtype=torch.int32)
+    runs = {  # name: (one run, windows)
+        "verify_prep": (lambda: verify_prep_plain(x, y), 1),
+        "build_tables": (lambda: build_tables_plain(x, y, flip), 1),
+        "glv_scan": (lambda: glv_scan_plain(digit, digit, digit, *tabs),
+                     GLV.NDIGITS_GLV),
+        "glv_scan2": (lambda: glv_scan2_plain(digit, digit, *tabs, point,
+                                              point), GLV.NDIGITS_GLV),
+        "dual_mul_v2": (lambda: dual_mul_v2_plain(digit, qtab, point),
+                        S.NDIGITS),
+        "dual_mul_planes": (lambda: dual_mul_planes_plain(point, point),
+                            S.NDIGITS),
     }
     out = {}
     F.mul, F.mul_small = mul, mul_small
     try:
-        for name, run in runs.items():
+        for name, (run, windows) in runs.items():
             counts.clear()
             run()
-            out[name] = dict(counts)
+            out[name] = {k: v * windows for k, v in counts.items()}
     finally:
         F.mul, F.mul_small = real_mul, real_small
     return out

@@ -6,9 +6,11 @@ Renes-Costello-Batina complete formulas for a = 0, which have no
 exceptional cases, so one code path serves every input.
 
 The kernels' plain versions in ``hopper_secp`` are built from these
-ops; ``dual_mul`` (the 64-window scan without GLV) and
-``host_verify_batch`` (the exact-int oracle) are the references the
-verify path is held against.
+ops.  ``dual_mul`` (the 64-window scan without GLV, the ``xla`` engine)
+and ``decompress`` (with ``field.inv_batch``, the ``xla`` prep) are the
+JAX package's XLA stages and stay plain PyTorch on the card;
+``host_verify_batch`` is the exact-int oracle the verify path is held
+against.
 """
 from __future__ import annotations
 
@@ -225,6 +227,14 @@ def flip_parity(y, parity):
     yn = F.normalize(FP, y)
     flip = (yn[..., 0] & 1) != parity.to(torch.int64)
     return F.select(flip, F.sub(FP, torch.zeros_like(y), y), y)
+
+
+def decompress(qx, parity):
+    """Canonical x and a y parity bit -> (y, on_curve): y = sqrt(x^3 + 7)
+    with the requested parity, on_curve whether y^2 = x^3 + 7."""
+    y2 = _add(_mul(_sqr(qx), qx), F.from_const(7, qx.shape[:-1], qx.device))
+    y = sqrt_p(y2)
+    return flip_parity(y, parity), F.eq(FP, _sqr(y), y2)
 
 
 _N_LOW128 = N_INT & ((1 << 128) - 1)

@@ -34,7 +34,7 @@ import torch
 
 from .. import device as D
 from ..crypto import field as F
-from ..crypto import hopper_secp as H
+from ..crypto import engines as E
 from ..crypto import ref_python as ref
 from . import wire
 from .store import StoreWriter
@@ -57,7 +57,8 @@ def _rand_scalars(rng: np.random.Generator, n: int) -> list[int]:
 
 def mul_g(ks: list[int], device: torch.device) -> list[tuple[int, int]]:
     """Affine k*G for each k in [1, n), as Python ints, through
-    dual_mul_fbj with u2 = 0 (the fixed-base half of the verify scan)."""
+    dual_mul_pallas_fbj with u2 = 0 (the fixed-base half of the verify
+    scan)."""
     out = []
     gx = F.from_int_array([ref.G.x], device)
     gy = F.from_int_array([ref.G.y], device)
@@ -65,8 +66,8 @@ def mul_g(ks: list[int], device: torch.device) -> list[tuple[int, int]]:
         chunk = ks[start:start + SIGN_BUCKET]
         B = len(chunk)
         u1 = F.from_int_array(chunk, device)
-        X, Y, Z = H.dual_mul_fbj(u1, torch.zeros_like(u1),
-                                 gx.expand(B, -1), gy.expand(B, -1))
+        X, Y, Z = E.dual_mul_pallas_fbj(
+            u1, torch.zeros_like(u1), gx.expand(B, -1), gy.expand(B, -1))
         xs, ys, zs = (_ints(F.normalize(F.FP, c)) for c in (X, Y, Z))
         for x, y, z in zip(xs, ys, zs):
             zi = pow(z, -1, P)

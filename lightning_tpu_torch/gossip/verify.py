@@ -7,8 +7,12 @@ whole store becomes flat arrays and the signatures verify in buckets:
 
   host:   mmap store -> native scan -> vectorized field gathers
   device: sha256d of the signed regions -> z-row gather -> byte unpack
-          -> range checks -> K1 prep -> u1, u2 -> GLV split and digits
-          -> K2 tables -> K3 scan -> projective x(R) = r check
+          -> range checks -> prep -> u1, u2 -> dual mul -> projective
+          x(R) = r check
+
+under one verify engine (``crypto/engines.py``); the default,
+``pallas_fbj+pp``, runs K1 prep -> GLV split and digits -> K2 tables ->
+K3 scan.
 
 Signatures are sorted by message row and cut into self-contained buckets
 (``_plan_buckets``): a bucket's signatures reference only the bucket's
@@ -29,7 +33,7 @@ import torch
 
 from .. import device as D
 from ..crypto import field as F
-from ..crypto import hopper_secp as H
+from ..crypto import engines as E
 from ..crypto import secp256k1 as S
 from ..crypto import sha256 as SH
 from ..utils import native
@@ -262,9 +266,10 @@ def _prep_bucket(items: VerifyItems, order, roi_sorted, chunk) -> _Bucket:
                    items.sigs[sel], items.pubkeys[sel], fix, z_fix)
 
 
-def verify_bucket(b: _Bucket, device: torch.device) -> torch.Tensor:
+def verify_bucket(b: _Bucket, device: torch.device,
+                  engine: str = E.DEFAULT_ENGINE) -> torch.Tensor:
     """One bucket on `device`: sha256d of its rows, host hashes for the
-    oversized rows, z gather, byte unpack, then ECDSA through K1-K3.
+    oversized rows, z gather, byte unpack, then ECDSA under `engine`.
     Returns bool (n,) on `device`."""
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -279,14 +284,15 @@ def verify_bucket(b: _Bucket, device: torch.device) -> torch.Tensor:
     s = F.from_bytes_be_dev(sig[:, 32:])
     qx = F.from_bytes_be_dev(pub[:, 1:])
     parity = pub[:, 0].to(torch.int64) & 1
-    return H.ecdsa_verify_kernel(z, r, s, qx, parity)
+    return E.ecdsa_verify_kernel(z, r, s, qx, parity, engine)
 
 
 def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
-                 device=None, stats: dict | None = None) -> np.ndarray:
+                 device=None, stats: dict | None = None,
+                 engine: str = E.DEFAULT_ENGINE) -> np.ndarray:
     """Verify every signature of `items` on `device` (the card unless
-    device="cpu").  Returns bool (N,).  `stats`, if given, receives the
-    bucket count."""
+    device="cpu") under the verify engine `engine`.  Returns bool (N,).
+    `stats`, if given, receives the bucket count."""
     dev = D.resolve(device)
     N = len(items)
     if stats is not None:
@@ -300,7 +306,7 @@ def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
     sels, oks = [], []
     for c in chunks:
         b = _prep_bucket(items, order, roi_sorted, c)
-        oks.append(verify_bucket(b, dev))
+        oks.append(verify_bucket(b, dev, engine))
         sels.append(b.sel)
     out = np.zeros(N, bool)
     out[np.concatenate(sels)] = torch.cat(oks).cpu().numpy()
@@ -350,15 +356,17 @@ def extract_store(idx: StoreIndex):
 
 
 def verify_store(idx: StoreIndex, bucket: int = DEFAULT_BUCKET,
-                 device=None) -> StoreVerifyResult:
+                 device=None,
+                 engine: str = E.DEFAULT_ENGINE) -> StoreVerifyResult:
     """Verify every signature on every alive gossip message of a store
-    on `device` (the card unless device="cpu")."""
+    on `device` (the card unless device="cpu") under the verify engine
+    `engine`."""
     dev = D.resolve(device)
     t0 = time.perf_counter()
     items, (n_ca, n_na, n_cu), n_alive = extract_store(idx)
     t1 = time.perf_counter()
     stats: dict = {}
-    ok = verify_items(items, bucket, dev, stats)
+    ok = verify_items(items, bucket, dev, stats, engine)
     t2 = time.perf_counter()
     ca_ok = ok[:n_ca].reshape(4, -1).all(axis=0) if n_ca \
         else np.zeros(0, bool)

@@ -1,9 +1,10 @@
 """The CUDA kernels' arithmetic, compiled for the host.
 
 Every function of lightning_tpu_torch/crypto/csrc/secp256k1.cuh is
-__host__ __device__, so the per-signature bodies of the three kernels
-(verify_prep_one, build_tables_one, glv_scan_one) build with the host C++
-compiler too.  Here they run on the CPU, one signature at a time, against
+__host__ __device__, so the per-signature bodies of the six kernels
+(verify_prep_one, build_tables_one, glv_scan_one, glv_scan2_one,
+dual_mul_v2_one, dual_mul_planes_one) build with the host C++ compiler
+too.  Here they run on the CPU, one signature at a time, against
 the port's plain versions on the same inputs, exactly after
 normalization.  The kernels themselves (grid, memory layout, launch) are
 held against the plain versions on the card by tests/test_torch_gpu.py
@@ -21,8 +22,10 @@ import torch
 
 from lightning_tpu.crypto import ref_python as ref
 from lightning_tpu_torch.crypto import _build
+from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import hopper_secp as H
+from lightning_tpu_torch.crypto import secp256k1 as S
 
 torch.set_num_threads(1)
 
@@ -31,6 +34,11 @@ P, N = ref.P, ref.N
 
 SHIM = r"""
 #include "secp256k1.cuh"
+static void put(const pt &acc, uint32_t *out) {
+    for (int k = 0; k < 8; k++) {
+        out[k] = acc.x[k]; out[8 + k] = acc.y[k]; out[16 + k] = acc.z[k];
+    }
+}
 extern "C" {
 void c_verify_prep(const uint32_t *x, const uint32_t *s, uint32_t *y,
                    uint32_t *d, uint32_t *w) { verify_prep_one(x, s, y, d, w); }
@@ -40,9 +48,25 @@ void c_glv_scan(const int32_t *dl, const int32_t *dh, const int32_t *g,
                 const uint32_t *tab, const uint32_t *jt, uint32_t *out) {
     pt acc;
     glv_scan_one(dl, dh, g, 1, tab, jt, acc);
-    for (int k = 0; k < 8; k++) {
-        out[k] = acc.x[k]; out[8 + k] = acc.y[k]; out[16 + k] = acc.z[k];
-    }
+    put(acc, out);
+}
+void c_glv_scan2(const int32_t *dl, const int32_t *dh, const uint32_t *tab,
+                 const uint32_t *g1, const uint32_t *g2, uint32_t *out) {
+    pt acc;
+    glv_scan2_one(dl, dh, 1, tab, g1, g2, acc);
+    put(acc, out);
+}
+void c_dual_mul_v2(const int32_t *d2, const uint32_t *qtab,
+                   const uint32_t *gs, uint32_t *out) {
+    pt acc;
+    dual_mul_v2_one(d2, 1, qtab, gs, acc);
+    put(acc, out);
+}
+void c_dual_mul_planes(const uint32_t *qs, const uint32_t *gs,
+                       uint32_t *out) {
+    pt acc;
+    dual_mul_planes_one(qs, gs, 1, acc);
+    put(acc, out);
 }
 }
 """
@@ -100,7 +124,7 @@ def test_build_tables_and_scan_bodies_match_plain(lib):
                                  for _ in range(B - 1)])
     qx = F.from_int_array([p.x for p in pts])
     qy = F.from_int_array([p.y for p in pts])
-    d2l, d2h, s2l, s2h, gidx = H.glv_prep_joint(u1, u2)
+    d2l, d2h, s2l, s2h, gidx = E.glv_prep_joint(u1, u2)
     byl = torch.where(s2l[:, None], F.sub(F.FP, torch.zeros_like(qy), qy), qy)
     flip = (s2l ^ s2h).to(torch.int64)
     lo, hi = H.build_tables_plain(qx, byl, flip)
@@ -123,6 +147,61 @@ def test_build_tables_and_scan_bodies_match_plain(lib):
                        out.ctypes.data_as(ctypes.c_void_p))
         for c, coord in enumerate((X, Y, Z)):
             assert _int(out[8 * c:8 * c + 8]) == F.limbs_to_int(coord[i]) % P
+
+
+def _scan_inputs(seed, n):
+    """n signatures' worth of engine operands: random scalars (u1 = 0 in
+    the first), random keys."""
+    rng = np.random.default_rng(seed)
+    pts = [ref.pubkey_create(int.from_bytes(rng.bytes(32), "big") % (N - 1)
+                             + 1) for _ in range(n)]
+    u1 = F.from_int_array([0] + [int.from_bytes(rng.bytes(32), "big") % N
+                                 for _ in range(n - 1)])
+    u2 = F.from_int_array([int.from_bytes(rng.bytes(32), "big") % N
+                           for _ in range(n)])
+    return (u1, u2, F.from_int_array([p.x for p in pts]),
+            F.from_int_array([p.y for p in pts]))
+
+
+def _col(t: torch.Tensor, i: int):
+    """Signature i's slice of a batch-last operand, as a C buffer."""
+    dt = np.int32 if t.dtype == torch.int64 else np.uint32
+    return _buf(t[..., i].numpy().astype(np.int64).astype(dt), dt)
+
+
+def _same_point(out, point, i):
+    for c, coord in enumerate(point):
+        assert _int(out[8 * c:8 * c + 8]) == F.limbs_to_int(coord[i]) % P
+
+
+@pytest.mark.parametrize("kernel", ["glv_scan2", "dual_mul_v2",
+                                    "dual_mul_planes"])
+def test_window_scan_bodies_match_plain(lib, kernel):
+    """K4, K5 and K6 on the operands their engines give them."""
+    n = 2
+    u1, u2, qx, qy = _scan_inputs(33, n)
+    if kernel == "glv_scan2":
+        d2l, d2h, s2l, s2h, g1, g2 = E._glv_prep(u1, u2)
+        qy_neg = F.sub(F.FP, torch.zeros_like(qy), qy)
+        byl = torch.where(s2l[:, None], qy_neg, qy)
+        lo, hi = H.build_tables_plain(qx, byl, (s2l ^ s2h).to(torch.int64))
+        ops = (d2l, d2h, H.tables_to_words(lo, hi), g1, g2)
+        want = H.glv_scan2_plain(d2l, d2h, lo, hi, g1, g2)
+    else:
+        d1, d2 = (E._msb_planes(u, 64) for u in (u1, u2))
+        words = H.to_words(S._build_window(qx, qy))
+        gs = E._select_shared_planes(E.shared_words("g", "cpu"), d1)
+        if kernel == "dual_mul_v2":
+            ops = (d2, words.permute(1, 2, 3, 0), gs)
+        else:
+            ops = (E._select_planes(words, d2), gs)
+        want = getattr(H, kernel + "_plain")(*ops)
+    for i in range(n):
+        out = np.zeros(24, np.uint32)
+        bufs = [_col(t, i) for t in ops]
+        getattr(lib, "c_" + kernel)(*(p for _, p in bufs),
+                                    out.ctypes.data_as(ctypes.c_void_p))
+        _same_point(out, want, i)
 
 
 def test_sources_are_the_built_ones():
@@ -153,7 +232,7 @@ def test_build_all_compiles_each_source_once(monkeypatch, tmp_path):
     assert all("Used 42 registers" in r and "spill" in r
                for r in reports.values())
     lines = calls.read_text().splitlines()
-    assert len(lines) == 3
+    assert len(lines) == len(_build.SOURCES) == 6
     assert all("arch=compute_90a,code=sm_90a" in ln for ln in lines)
     assert _build.build_all() == reports          # nothing stale: no call
-    assert len(calls.read_text().splitlines()) == 3
+    assert len(calls.read_text().splitlines()) == 6

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import hopper_secp as H
 from lightning_tpu_torch.crypto import ref_python as ref
@@ -82,7 +83,7 @@ def test_dual_mul_on_card_matches_oracle(cuda):
                            for _ in range(n - 2)]
     u2 = [ref.N - 1, 0] + [int.from_bytes(gen.bytes(32), "big") % ref.N
                            for _ in range(n - 2)]
-    X, Y, Z = (t.cpu() for t in H.dual_mul_fbj(
+    X, Y, Z = (t.cpu() for t in E.dual_mul_pallas_fbj(
         F.from_int_array(u1, cuda), F.from_int_array(u2, cuda),
         F.from_int_array([p.x for p in pts], cuda),
         F.from_int_array([p.y for p in pts], cuda)))
@@ -95,17 +96,90 @@ def test_dual_mul_on_card_matches_oracle(cuda):
                 F.limbs_to_int(Y[i]) * zi % ref.P) == (want.x, want.y)
 
 
-def test_verify_store_on_card(cuda, tmp_path):
-    from lightning_tpu_torch.gossip import store, synth, verify
+def _words(gen, shape, dev):
+    """Random canonical field elements (< 2^255 < p) as int32 words,
+    (..., 8, B)."""
+    w = gen.integers(0, 2**32, shape, dtype=np.uint32)
+    w[..., 7, :] &= 0x7FFFFFFF
+    return torch.as_tensor(w.view(np.int32), device=dev)
 
-    path = str(tmp_path / "gpu.gs")
-    info = synth.make_network_store(path, 300, 40, seed=9, device=cuda,
+
+def _same_point(got, want):
+    for g, w in zip(got, want):
+        _same(F.FP, g, w)
+
+
+def test_glv_scan2_kernel_matches_plain(cuda):
+    gen = np.random.default_rng(45)
+    bx, by = _rand(gen, B, F.P_INT, cuda), _rand(gen, B, F.P_INT, cuda)
+    flip = torch.as_tensor(gen.integers(0, 2, B), device=cuda)
+    d2l, d2h = (torch.as_tensor(gen.integers(0, 16, (33, B)), device=cuda)
+                for _ in range(2))
+    g1, g2 = (_words(gen, (33, 3, 8, B), cuda) for _ in range(2))
+    tab = H.build_tables(bx, by, flip)
+    before = H.glv_scan2.launches
+    got = H.glv_scan2(d2l, d2h, tab, g1, g2)
+    assert H.glv_scan2.launches == before + 1
+    _same_point(got, H.glv_scan2_plain(d2l, d2h, *H.tables_to_limbs(tab),
+                                       g1, g2))
+
+
+def test_dual_mul_v2_kernel_matches_plain(cuda):
+    gen = np.random.default_rng(46)
+    d2 = torch.as_tensor(gen.integers(0, 16, (64, B)), device=cuda)
+    qtab, gs = _words(gen, (16, 3, 8, B), cuda), _words(gen, (64, 3, 8, B),
+                                                       cuda)
+    before = H.dual_mul_v2.launches
+    got = H.dual_mul_v2(d2, qtab, gs)
+    assert H.dual_mul_v2.launches == before + 1
+    _same_point(got, H.dual_mul_v2_plain(d2, qtab, gs))
+
+
+def test_dual_mul_planes_kernel_matches_plain(cuda):
+    gen = np.random.default_rng(47)
+    qs, gs = (_words(gen, (64, 3, 8, B), cuda) for _ in range(2))
+    before = H.dual_mul_planes.launches
+    got = H.dual_mul_planes(qs, gs)
+    assert H.dual_mul_planes.launches == before + 1
+    _same_point(got, H.dual_mul_planes_plain(qs, gs))
+
+
+# The kernels each engine launches once a bucket on the card (K1 is the
+# "+pp" prep's).
+ENGINE_KERNELS = {
+    "pallas_fbj+pp": {"verify_prep_core", "build_tables", "glv_scan"},
+    "pallas+pp": {"verify_prep_core", "dual_mul_planes"},
+    "pallas_v2+pp": {"verify_prep_core", "dual_mul_v2"},
+    "pallas_glv+pp": {"verify_prep_core", "glv_scan2"},
+    "pallas_fb+pp": {"verify_prep_core", "build_tables", "glv_scan2"},
+    "pallas_fb": {"build_tables", "glv_scan2"},
+    "glv": set(),
+}
+
+
+@pytest.fixture(scope="module")
+def small_store(tmp_path_factory):
+    from lightning_tpu_torch.gossip import synth
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode); "
+                    "run on the card with -m gpu")
+    path = str(tmp_path_factory.mktemp("gpu") / "gpu.gs")
+    info = synth.make_network_store(path, 300, 40, seed=9, device="cuda",
                                     n_corrupt=7, off_curve=1, bad_tag=1,
                                     oversized=2)
+    return path, info
+
+
+@pytest.mark.parametrize("engine", list(ENGINE_KERNELS))
+def test_verify_store_on_card(small_store, engine):
+    from lightning_tpu_torch.gossip import store, verify
+
+    path, info = small_store
     H.reset_launches()
     res = verify.verify_store(store.load_store(path), bucket=512,
-                              device="cuda")
+                              device="cuda", engine=engine)
     assert np.array_equal(res.sig_ok, info["expected_sig_ok"])
-    assert H.launch_counts() == {"verify_prep_core": res.buckets,
-                                 "build_tables": res.buckets,
-                                 "glv_scan": res.buckets}
+    assert H.launch_counts() == {
+        k.__name__: res.buckets * (k.__name__ in ENGINE_KERNELS[engine])
+        for k in H.KERNELS}

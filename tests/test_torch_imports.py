@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from lightning_tpu_torch import device as D
+from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import hopper_secp as H
 from lightning_tpu_torch.gossip import store as TST
@@ -47,6 +48,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert got["bad"] == []
     for mod in ("lightning_tpu_torch.gossip.verify",
                 "lightning_tpu_torch.crypto.hopper_secp",
+                "lightning_tpu_torch.crypto.engines",
                 "lightning_tpu_torch.convert"):
         assert mod in got["modules"]
 
@@ -60,6 +62,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     idx = TST.load_store(str(tmp_path / "missing.gs"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TV.verify_store(idx)
+    one = np.zeros((1, 32), np.uint8)
+    args = (one, np.zeros((1, 64), np.uint8), np.zeros((1, 33), np.uint8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.ecdsa_verify_batch(*args)
+    assert E.ecdsa_verify_batch(*(a[:0] for a in args),
+                                device="cpu").shape == (0,)
     assert D.resolve("cpu") == torch.device("cpu")
 
 
@@ -72,6 +80,14 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         H.build_tables(x, x, torch.zeros(2, dtype=torch.int64,
                                          device="meta"))
+    planes = torch.zeros((64, 3, 8, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        H.dual_mul_planes(planes, planes)
+    with pytest.raises(ValueError, match="unsupported device"):
+        H.dual_mul_v2(planes[:, 0, 0], planes[:16], planes)
+    with pytest.raises(ValueError, match="unsupported device"):
+        H.glv_scan2(planes[:33, 0, 0], planes[:33, 0, 0], None,
+                    planes[:33], planes[:33])
 
 
 def test_launch_counters_start_at_zero_and_ignore_plain_calls():
@@ -79,5 +95,6 @@ def test_launch_counters_start_at_zero_and_ignore_plain_calls():
     one = F.from_int_array([1])
     H.verify_prep_core(one, one)
     assert H.launch_counts() == {"verify_prep_core": 0, "build_tables": 0,
-                                 "glv_scan": 0}
+                                 "glv_scan": 0, "glv_scan2": 0,
+                                 "dual_mul_v2": 0, "dual_mul_planes": 0}
     assert np.array_equal(F.to_bytes_be(one)[0, -1:], [1])

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from lightning_tpu.crypto import ref_python as ref
+from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import glv as GLV
 from lightning_tpu_torch.crypto import hopper_secp as H
@@ -91,7 +92,7 @@ def test_build_tables_plain_matches_oracle(flip):
 
 
 def test_glv_scan_plain_matches_oracle():
-    """K2 + K3 (dual_mul_fbj) = u1*G + u2*Q, including u = 0, u = n - 1
+    """K2 + K3 (dual_mul_pallas_fbj) = u1*G + u2*Q, including u = 0, u = n - 1
     and a sum at infinity."""
     rng = np.random.default_rng(25)
     pts = _keys(rng, B)
@@ -100,9 +101,10 @@ def test_glv_scan_plain_matches_oracle():
     u1[0], u2[1], u1[2], u2[3] = 0, 0, N - 1, N - 1
     pts[4] = ref.G                       # u1*G + u2*G with u2 = n - u1
     u2[4] = N - u1[4]
-    X, Y, Z = H.dual_mul_fbj(F.from_int_array(u1), F.from_int_array(u2),
-                             F.from_int_array([p.x for p in pts]),
-                             F.from_int_array([p.y for p in pts]))
+    X, Y, Z = E.dual_mul_pallas_fbj(
+        F.from_int_array(u1), F.from_int_array(u2),
+        F.from_int_array([p.x for p in pts]),
+        F.from_int_array([p.y for p in pts]))
     for i, p in enumerate(pts):
         want = ref.point_add(ref.point_mul(u1[i], ref.G),
                              ref.point_mul(u2[i], p))
@@ -123,7 +125,7 @@ def test_glv_scan_plain_matches_dual_mul_glv():
                            for _ in range(3)])
     qx = F.from_int_array([p.x for p in pts])
     qy = F.from_int_array([p.y for p in pts])
-    a = H.dual_mul_fbj(u1, u2, qx, qy)
+    a = E.dual_mul_pallas_fbj(u1, u2, qx, qy)
     b = GLV.dual_mul_glv(u1, u2, qx, qy)
     c = S.dual_mul(u1, u2, qx, qy)
     for i in range(3):
@@ -135,11 +137,18 @@ def test_field_op_counts():
     addition: 12 multiplications + 2 small multiples (the first table
     addition, Q + Q, squares its three input products); sqrt_p: 253
     squarings + 13 multiplications; inv_n: 255 squarings + 81
-    multiplications."""
+    multiplications.  Per window, K3 does 4 doublings and 3 additions,
+    K4 4 and 4 (33 windows), K5 and K6 4 and 2 (64 windows)."""
     counts = H.field_op_counts()
-    assert counts["glv_scan"] == {"sqr_p": 33 * 4 * 2,
-                                  "mul_p": 33 * (4 * 6 + 3 * 12),
-                                  "mul_small_p": 33 * (4 + 3 * 2)}
+
+    def scan(windows, adds):
+        return {"sqr_p": windows * 4 * 2,
+                "mul_p": windows * (4 * 6 + adds * 12),
+                "mul_small_p": windows * (4 + adds * 2)}
+
+    assert counts["glv_scan"] == scan(33, 3)
+    assert counts["glv_scan2"] == scan(33, 4)
+    assert counts["dual_mul_v2"] == counts["dual_mul_planes"] == scan(64, 2)
     assert counts["build_tables"] == {"sqr_p": 3, "mul_p": 14 * 12 - 3 + 15,
                                       "mul_small_p": 28}
     assert counts["verify_prep"] == {"sqr_p": 1 + 253 + 3,
