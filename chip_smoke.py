@@ -11,7 +11,10 @@ Phases, each fatal on failure:
    ptxas report;
 2. each kernel against its plain PyTorch version on the card, at the
    bucket size, a ragged batch (bucket + 37) and edge inputs, compared
-   exactly after normalization mod p or n: every kernel engine's dual
+   exactly after normalization mod p or n: K1 on edge x and s, and at the
+   ragged size with s = 0, n and 2^256 - 1 at the first and last thread
+   of its first two blocks and at B - 1; K2 on carry-edge coordinates
+   (0, 1, p - 1, p - 2, p, words of all ones); every kernel engine's dual
    multiplication on edge scalars (u = 0, 1, n - 1 on both sides, and
    u1*G = -u2*Q) on the card, in the plain path and in the exact-int
    oracle; a verify batch of edge signatures (s = 0, off-curve x, u = 0,
@@ -29,7 +32,10 @@ Phases, each fatal on failure:
    seeded verdicts again, and the bucket count of launches for exactly
    that engine's kernels, 0 for the others;
 4. timing: each kernel's ms per call at the bucket size (CUDA events),
-   its plain version's ms and its bound.
+   its plain version's ms and its bound; K3 once more with every digit
+   and joint index one fixed value (coalesced or broadcast reads: the gap
+   is what its gathers cost); K1's bound with its batch inversion beside
+   the bound of a Fermat chain per signature.
 
 Prints one {"kernels": [...]} line (each kernel's launches counted on
 the replay of the first engine that runs it, named as "path"), the
@@ -134,6 +140,27 @@ def compare_k1(H, F, qx, s):
     res = [mismatches(F, m, g, w)
            for m, g, w in zip((F.FP, F.FP, F.FN), got, want)]
     return sum(r[0] for r in res), max(r[1] for r in res)
+
+
+def k1_zero_cases(gen, B, dev, F, H, ref):
+    """K1 inputs at size B with s = 0, n and 2^256 - 1 at the first and
+    last thread of the first two blocks and at B - 1."""
+    qx, s = k1_inputs(gen, B, dev, F)
+    ss = F.to_int_list(s.cpu())
+    T = H.PREP_THREADS
+    for j, i in enumerate((0, T - 1, T, 2 * T - 1, B - 1)):
+        ss[i] = (0, ref.N, 2 ** 256 - 1)[j % 3]
+    return qx, F.from_int_array(ss, dev)
+
+
+def k2_edges(gen, dev, F, ref, torch):
+    """K2 on every pair of carry-edge coordinates, either sign flip."""
+    edge = [0, 1, 2, ref.P - 1, ref.P - 2, ref.P, ref.P + 1, 2 ** 32 - 1,
+            2 ** 64 - 1, 2 ** 255, 2 ** 256 - 2 ** 32, 2 ** 256 - 1]
+    xs = [a for a in edge for _ in edge]
+    ys = [b for _ in edge for b in edge]
+    flip = torch.as_tensor(gen.integers(0, 2, len(xs)), device=dev)
+    return F.from_int_array(xs, dev), F.from_int_array(ys, dev), flip
 
 
 def k2_inputs(gen, B, dev, F, torch):
@@ -369,6 +396,8 @@ def main(argv=None) -> int:
     for k, rep in reports.items():
         smem = "" if "smem" in rep else " | 0 bytes smem"
         log(f"  ptxas {k}: " + " | ".join(rep.splitlines()) + smem)
+    log(f"  glv_scan: {_build.lib('glv_scan').glv_scan_blocks_per_sm()} "
+        f"blocks resident per SM")
 
     # -- phase 2: kernels against their plain versions on the card
     gen = np.random.default_rng(args.seed)
@@ -393,6 +422,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         log(f"compare B={B}: " + json.dumps(result))
     note("verify_prep", compare_k1(H, F, *k1_edges(dev, F, ref)))
+    B_zero = max(Bk, 2 * H.PREP_THREADS) + 37
+    note("verify_prep", compare_k1(H, F, *k1_zero_cases(gen, B_zero, dev, F,
+                                                        H, ref)))
+    note("build_tables", compare_k2(H, F, *k2_edges(gen, dev, F, ref, torch)))
+    log("compare K1 ragged and zero cases, K2 carry edges: "
+        + json.dumps({k: result[k] for k in ("verify_prep", "build_tables")}))
     by_wrapper = {WRAPPER.get(k, k): k for k in SOURCES}
     for engine, kernels in ENGINE_KERNELS.items():
         if not engine.endswith("+pp"):
@@ -531,6 +566,19 @@ def main(argv=None) -> int:
             f"bound {b_ms:.4f} ms ({b_by}; field ops {opc[k]}; SM clock "
             f"{clock / 1e6:.0f} MHz)")
         on_path, n = launches[WRAPPER.get(k, k)]
+        if k == "glv_scan":
+            fixed = [torch.full_like(t, 5) for t in dig]
+            ms_fixed = time_cuda(torch, lambda: H._launch(
+                "glv_scan", *fixed, tab, jt, *o8, B=Bk), reps=20)
+            log(f"time glv_scan fixed digits: {ms_fixed:.4f} ms/call with "
+                f"every digit and joint index 5, {ms:.4f} ms with random "
+                f"ones: the gathers cost {ms - ms_fixed:.4f} ms")
+        if k == "verify_prep":
+            old_ms, _ = bound_ms(opc["verify_prep_chain_per_signature"], H,
+                                 Bk, nbytes, clock)
+            log(f"bound verify_prep: {b_ms:.4f} ms with one Fermat chain a "
+                f"block of {H.PREP_THREADS}, {old_ms:.4f} ms with a chain "
+                f"per signature")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": n, "path": on_path,

@@ -4,12 +4,21 @@
 // reduced ([0, p) or [0, n)) after every operation.  One thread owns one
 // signature, so every value below lives in that thread's registers.
 //
-// * mod p: schoolbook 8x8-word product in 64-bit accumulators, then the
-//   pseudo-Mersenne fold 2^256 = 2^32 + 977 (mod p), twice, and one
-//   conditional subtract.
-// * mod n: Montgomery multiplication (CIOS, R = 2^256); only the s^-1
-//   chain of the prep kernel uses it, entering and leaving the Montgomery
-//   domain once.
+// * products: the 8x8-word product (64 32-bit products) and the squaring
+//   (36: 8 squares and 28 doubled cross products) into 16 words.  On the
+//   device pass they are PTX carry chains (mad.lo.cc / madc.hi.cc); the
+//   product runs the even and the odd words of a row as two independent
+//   chains.  The host pass compiles a portable C body with 64-bit
+//   accumulators; it is what tests/test_torch_csrc_host.py checks, the PTX
+//   is checked on the card.
+// * mod p: the pseudo-Mersenne fold 2^256 = 2^32 + 977 (mod p), PTX on the
+//   device; a second fold of the 33 bits left; then one branchless
+//   conditional subtraction.  Add, sub and every conditional subtraction
+//   compute both candidates from the carry or borrow flag and select with
+//   a mask: no data-dependent branch.
+// * mod n: Montgomery multiplication and squaring (R = 2^256) as a product
+//   and a separate reduction (REDC); used only by the inversions of the
+//   prep kernel, which run in the Montgomery domain.
 // * points: homogeneous projective (X:Y:Z), infinity (0:1:0), with the
 //   Renes-Costello-Batina complete formulas for a = 0 (b3 = 21), in the
 //   same operation order as the plain PyTorch engine, so every output is
@@ -26,11 +35,6 @@
 #else
 #define HD static inline
 #endif
-#ifdef __CUDA_ARCH__
-#define LDG(p) __ldg(p)  // device pass: the read-only data cache
-#else
-#define LDG(p) (*(p))
-#endif
 
 #define SECP_B3 21u
 
@@ -40,6 +44,12 @@
 HD void fe_set_p(uint32_t r[8]) {
     r[0] = 0xFFFFFC2Fu; r[1] = 0xFFFFFFFEu;
     for (int i = 2; i < 8; i++) r[i] = 0xFFFFFFFFu;
+}
+
+// 2^256 - p = 2^32 + 977: adding it subtracts p modulo 2^256.
+HD void fe_set_pc(uint32_t r[8]) {
+    r[0] = 0x3D1u; r[1] = 1u;
+    for (int i = 2; i < 8; i++) r[i] = 0;
 }
 
 HD void fe_set_n(uint32_t r[8]) {
@@ -61,6 +71,13 @@ HD void fe_set_r2n(uint32_t r[8]) {
     r[6] = 0x81C69BC5u; r[7] = 0x9D671CD5u;
 }
 
+// 2^256 mod n: 1 in the Montgomery domain.
+HD void fe_set_rn(uint32_t r[8]) {
+    r[0] = 0x2FC9BEBFu; r[1] = 0x402DA173u; r[2] = 0x50B75FC4u;
+    r[3] = 0x45512319u; r[4] = 1u;
+    r[5] = 0; r[6] = 0; r[7] = 0;
+}
+
 #define SECP_N0INV 0x5588B13Fu  // -n^-1 mod 2^32
 
 HD void fe_set_small(uint32_t r[8], uint32_t v) {
@@ -72,134 +89,312 @@ HD void fe_copy(uint32_t r[8], const uint32_t a[8]) {
     for (int i = 0; i < 8; i++) r[i] = a[i];
 }
 
-HD bool fe_is_zero(const uint32_t a[8]) {
+HD uint32_t fe_is_zero(const uint32_t a[8]) {
     uint32_t acc = 0;
     for (int i = 0; i < 8; i++) acc |= a[i];
     return acc == 0;
 }
 
-// a >= m
-HD bool fe_geq(const uint32_t a[8], const uint32_t m[8]) {
-    for (int i = 7; i >= 0; i--) {
-        if (a[i] != m[i]) return a[i] > m[i];
-    }
-    return true;
+// r = a where mask is all ones, b where it is 0
+HD void fe_select(uint32_t r[8], uint32_t mask, const uint32_t a[8],
+                  const uint32_t b[8]) {
+#pragma unroll
+    for (int i = 0; i < 8; i++) r[i] = (a[i] & mask) | (b[i] & ~mask);
 }
+
+// ---------------------------------------------------------------------------
+// PTX carry chains (device pass only)
+
+#ifdef __CUDA_ARCH__
+#define PTX_OP3(name, op)                                                   \
+    __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) {      \
+        uint32_t r;                                                         \
+        asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));         \
+        return r;                                                           \
+    }
+#define PTX_OP4(name, op)                                                   \
+    __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b,        \
+                                             uint32_t c) {                  \
+        uint32_t r;                                                         \
+        asm volatile(op " %0, %1, %2, %3;"                                  \
+                     : "=r"(r) : "r"(a), "r"(b), "r"(c));                   \
+        return r;                                                           \
+    }
+PTX_OP3(add_cc, "add.cc.u32")
+PTX_OP3(addc_cc, "addc.cc.u32")
+PTX_OP3(addc, "addc.u32")
+PTX_OP3(sub_cc, "sub.cc.u32")
+PTX_OP3(subc_cc, "subc.cc.u32")
+PTX_OP3(subc, "subc.u32")
+PTX_OP4(mad_lo_cc, "mad.lo.cc.u32")
+PTX_OP4(madc_lo_cc, "madc.lo.cc.u32")
+PTX_OP4(mad_hi_cc, "mad.hi.cc.u32")
+PTX_OP4(madc_hi_cc, "madc.hi.cc.u32")
+PTX_OP4(madc_hi, "madc.hi.u32")
+PTX_OP4(mad_hi, "mad.hi.u32")
+#undef PTX_OP3
+#undef PTX_OP4
+#endif
+
+// ---------------------------------------------------------------------------
+// Word-level chains
 
 // r = a + b, returns the carry out
 HD uint32_t fe_add_raw(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-    uint64_t c = 0;
+#ifdef __CUDA_ARCH__
+    r[0] = add_cc(a[0], b[0]);
 #pragma unroll
+    for (int i = 1; i < 8; i++) r[i] = addc_cc(a[i], b[i]);
+    return addc(0, 0);
+#else
+    uint64_t c = 0;
     for (int i = 0; i < 8; i++) {
         c += (uint64_t)a[i] + b[i];
         r[i] = (uint32_t)c;
         c >>= 32;
     }
     return (uint32_t)c;
+#endif
 }
 
 // r = a - b, returns 1 on borrow
 HD uint32_t fe_sub_raw(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-    uint64_t bw = 0;
+#ifdef __CUDA_ARCH__
+    r[0] = sub_cc(a[0], b[0]);
 #pragma unroll
+    for (int i = 1; i < 8; i++) r[i] = subc_cc(a[i], b[i]);
+    return subc(0, 0) & 1u;
+#else
+    uint64_t bw = 0;
     for (int i = 0; i < 8; i++) {
         uint64_t d = (uint64_t)a[i] - b[i] - bw;
         r[i] = (uint32_t)d;
         bw = (d >> 32) & 1;
     }
     return (uint32_t)bw;
+#endif
 }
 
-// r = a mod m for any 256-bit a (a < 2^256 < 2m)
-HD void fe_reduce_once(uint32_t r[8], const uint32_t a[8], const uint32_t m[8]) {
-    fe_copy(r, a);
-    if (fe_geq(r, m)) fe_sub_raw(r, r, m);
-}
-
-// ---------------------------------------------------------------------------
-// Arithmetic mod p
-
-HD void fp_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-    uint32_t p[8];
-    fe_set_p(p);
-    uint32_t c = fe_add_raw(r, a, b);
-    if (c || fe_geq(r, p)) fe_sub_raw(r, r, p);
-}
-
-HD void fp_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-    uint32_t p[8];
-    fe_set_p(p);
-    if (fe_sub_raw(r, a, b)) fe_add_raw(r, r, p);
-}
-
-// r = (t + h * 2^256) mod p for h < 2^40, using 2^256 = 2^32 + 977.
-HD void fp_fold(uint32_t r[8], const uint32_t t[8], uint64_t h) {
-    uint64_t lo = h * 977u;                 // < 2^50
-    uint64_t acc = (uint64_t)t[0] + (uint32_t)lo;
-    r[0] = (uint32_t)acc;
-    acc = (acc >> 32) + t[1] + (lo >> 32) + (uint32_t)h;
-    r[1] = (uint32_t)acc;
-    acc = (acc >> 32) + t[2] + (h >> 32);
-    r[2] = (uint32_t)acc;
+// t = a * b, 16 words.  Device: row i adds a[j] * b[i] for even j into
+// e[i..i+8] and for odd j into o[i+1..i+8], two carry chains with no
+// dependence on each other; t = e + o at the end.
+HD void fe_mul_wide(uint32_t t[16], const uint32_t a[8], const uint32_t b[8]) {
+#ifdef __CUDA_ARCH__
+    uint32_t e[16], o[16];
 #pragma unroll
-    for (int i = 3; i < 8; i++) {
-        acc = (acc >> 32) + t[i];
-        r[i] = (uint32_t)acc;
+    for (int j = 0; j < 8; j += 2) {
+        e[j] = a[j] * b[0];
+        e[j + 1] = __umulhi(a[j], b[0]);
+        o[j + 1] = a[j + 1] * b[0];
+        o[j + 2] = __umulhi(a[j + 1], b[0]);
     }
-    if (acc >> 32) {
-        // wrapped past 2^256: what is left is < 2^74, add 2^32 + 977 once
-        acc = (uint64_t)r[0] + 977u;
-        r[0] = (uint32_t)acc;
-        acc = (acc >> 32) + r[1] + 1u;
-        r[1] = (uint32_t)acc;
+    e[8] = 0;
 #pragma unroll
-        for (int i = 2; i < 8; i++) {
-            acc = (acc >> 32) + r[i];
-            r[i] = (uint32_t)acc;
+    for (int i = 1; i < 8; i++) {
+        e[i] = mad_lo_cc(a[0], b[i], e[i]);
+        e[i + 1] = madc_hi_cc(a[0], b[i], e[i + 1]);
+#pragma unroll
+        for (int j = 2; j < 8; j += 2) {
+            e[i + j] = madc_lo_cc(a[j], b[i], e[i + j]);
+            e[i + j + 1] = madc_hi_cc(a[j], b[i], e[i + j + 1]);
         }
+        e[i + 8] = addc(0, 0);
+        o[i + 1] = mad_lo_cc(a[1], b[i], o[i + 1]);
+        o[i + 2] = madc_hi_cc(a[1], b[i], o[i + 2]);
+#pragma unroll
+        for (int j = 3; j < 7; j += 2) {
+            o[i + j] = madc_lo_cc(a[j], b[i], o[i + j]);
+            o[i + j + 1] = madc_hi_cc(a[j], b[i], o[i + j + 1]);
+        }
+        o[i + 7] = madc_lo_cc(a[7], b[i], o[i + 7]);
+        o[i + 8] = madc_hi(a[7], b[i], 0);   // the top word: no carry out
     }
-    uint32_t p[8];
-    fe_set_p(p);
-    if (fe_geq(r, p)) fe_sub_raw(r, r, p);
-}
-
-HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-    uint32_t t[16];
+    t[0] = e[0];
+    t[1] = add_cc(e[1], o[1]);
 #pragma unroll
+    for (int k = 2; k < 15; k++) t[k] = addc_cc(e[k], o[k]);
+    t[15] = addc(e[15], o[15]);
+#else
     for (int i = 0; i < 16; i++) t[i] = 0;
-#pragma unroll
     for (int i = 0; i < 8; i++) {
         uint64_t c = 0;
-#pragma unroll
         for (int j = 0; j < 8; j++) {
-            c += (uint64_t)a[i] * b[j] + t[i + j];
+            c += (uint64_t)a[j] * b[i] + t[i + j];
             t[i + j] = (uint32_t)c;
             c >>= 32;
         }
         t[i + 8] = (uint32_t)c;
     }
-    // t = L + H * 2^256 = L + H * 977 + (H << 32)  (mod p)
-    uint32_t s[8];
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-        c += (uint64_t)t[8 + i] * 977u + t[i];
-        s[i] = (uint32_t)c;
-        c >>= 32;
-    }
-    uint64_t top = c;                       // < 2^10
-    c = 0;
-#pragma unroll
-    for (int i = 1; i < 8; i++) {
-        c += (uint64_t)s[i] + t[8 + i - 1];
-        s[i] = (uint32_t)c;
-        c >>= 32;
-    }
-    top += c + t[15];                       // < 2^33
-    fp_fold(r, s, top);
+#endif
 }
 
-HD void fp_sqr(uint32_t r[8], const uint32_t a[8]) { fp_mul(r, a, a); }
+// t = a^2, 16 words: the 28 cross products a[i] a[j] (i < j), doubled,
+// plus the 8 squares on the diagonal.
+HD void fe_sqr_wide(uint32_t t[16], const uint32_t a[8]) {
+#pragma unroll
+    for (int k = 0; k < 16; k++) t[k] = 0;
+#ifdef __CUDA_ARCH__
+#pragma unroll
+    for (int i = 0; i < 7; i++) {
+        // low halves into t[2i+1 .. i+7], the carry into the fresh t[i+8]
+        t[2 * i + 1] = mad_lo_cc(a[i], a[i + 1], t[2 * i + 1]);
+#pragma unroll
+        for (int j = i + 2; j < 8; j++)
+            t[i + j] = madc_lo_cc(a[i], a[j], t[i + j]);
+        t[i + 8] = addc(0, 0);
+        // high halves into t[2i+2 .. i+8]; the row's sum fits: no carry out
+        if (i == 6) {
+            t[14] = mad_hi(a[6], a[7], t[14]);
+        } else {
+            t[2 * i + 2] = mad_hi_cc(a[i], a[i + 1], t[2 * i + 2]);
+#pragma unroll
+            for (int j = i + 2; j < 7; j++)
+                t[i + j + 1] = madc_hi_cc(a[i], a[j], t[i + j + 1]);
+            t[i + 8] = madc_hi(a[i], a[7], t[i + 8]);
+        }
+    }
+#else
+    for (int i = 0; i < 7; i++) {
+        uint64_t c = 0;
+        for (int j = i + 1; j < 8; j++) {
+            c += (uint64_t)a[i] * a[j] + t[i + j];
+            t[i + j] = (uint32_t)c;
+            c >>= 32;
+        }
+        t[i + 8] = (uint32_t)c;
+    }
+#endif
+    // double the cross products (their sum is below 2^511)
+    t[15] = t[14] >> 31;
+#pragma unroll
+    for (int k = 14; k > 0; k--) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+#ifdef __CUDA_ARCH__
+    t[0] = mad_lo_cc(a[0], a[0], t[0]);
+    t[1] = madc_hi_cc(a[0], a[0], t[1]);
+#pragma unroll
+    for (int i = 1; i < 7; i++) {
+        t[2 * i] = madc_lo_cc(a[i], a[i], t[2 * i]);
+        t[2 * i + 1] = madc_hi_cc(a[i], a[i], t[2 * i + 1]);
+    }
+    t[14] = madc_lo_cc(a[7], a[7], t[14]);
+    t[15] = madc_hi(a[7], a[7], t[15]);
+#else
+    uint64_t c = 0;
+    for (int i = 0; i < 8; i++) {
+        c += (uint64_t)a[i] * a[i] + t[2 * i];
+        t[2 * i] = (uint32_t)c;
+        c = (c >> 32) + t[2 * i + 1];
+        t[2 * i + 1] = (uint32_t)c;
+        c >>= 32;
+    }
+#endif
+}
+
+// r = a mod m for any 256-bit a (a < 2^256 < 2m)
+HD void fe_reduce_once(uint32_t r[8], const uint32_t a[8], const uint32_t m[8]) {
+    uint32_t t[8];
+    uint32_t bw = fe_sub_raw(t, a, m);
+    fe_select(r, 0u - bw, a, t);
+}
+
+// ---------------------------------------------------------------------------
+// Arithmetic mod p
+
+// r = (carry * 2^256 + r) mod p for a value below 2^256 + 2^67 (carry set)
+// or below 2^256 (carry 0): r + 2^32 + 977 modulo 2^256 is the value less
+// p; take it where the carry or the addition overflows.
+HD void fp_final(uint32_t r[8], uint32_t carry) {
+    uint32_t pc[8], t[8];
+    fe_set_pc(pc);
+    uint32_t c = fe_add_raw(t, r, pc);
+    fe_select(r, 0u - (carry | c), t, r);
+}
+
+// r = (s + (hi * 2^32 + lo) * 2^256) mod p for hi <= 1, by 2^256 = 2^32 +
+// 977: the fold adds at most 2^66.
+HD void fp_fold_top(uint32_t r[8], const uint32_t s[8], uint32_t lo,
+                    uint32_t hi) {
+    uint64_t m = (uint64_t)lo * 977u;
+    uint64_t c = (uint64_t)s[0] + (uint32_t)m;
+    r[0] = (uint32_t)c;
+    c = (c >> 32) + s[1] + (m >> 32) + lo + (uint64_t)hi * 977u;
+    r[1] = (uint32_t)c;
+    c = (c >> 32) + s[2] + hi;
+    r[2] = (uint32_t)c;
+#pragma unroll
+    for (int i = 3; i < 8; i++) {
+        c = (c >> 32) + s[i];
+        r[i] = (uint32_t)c;
+    }
+    fp_final(r, (uint32_t)(c >> 32));
+}
+
+// r = t mod p for a 16-word t = L + H * 2^256: s = L + 977 H + (H << 32)
+// in 9 words and a carry, then the fold of those 33 bits.
+HD void fp_reduce_wide(uint32_t r[8], const uint32_t t[16]) {
+    const uint32_t *L = t, *H = t + 8;
+    uint32_t s[8], s8, s9;
+#ifdef __CUDA_ARCH__
+    s[0] = mad_lo_cc(H[0], 977u, L[0]);
+#pragma unroll
+    for (int i = 1; i < 8; i++) s[i] = madc_lo_cc(H[i], 977u, L[i]);
+    s8 = addc(0, 0);
+    s[1] = mad_hi_cc(H[0], 977u, s[1]);
+#pragma unroll
+    for (int i = 2; i < 8; i++) s[i] = madc_hi_cc(H[i - 1], 977u, s[i]);
+    s8 = madc_hi(H[7], 977u, s8);
+    s[1] = add_cc(s[1], H[0]);
+#pragma unroll
+    for (int i = 2; i < 8; i++) s[i] = addc_cc(s[i], H[i - 1]);
+    s8 = addc_cc(s8, H[7]);
+    s9 = addc(0, 0);
+#else
+    uint64_t c = 0;
+    for (int i = 0; i < 8; i++) {
+        c += (uint64_t)H[i] * 977u + L[i];
+        s[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    uint64_t top = c;                         // < 2^10
+    c = 0;
+    for (int i = 1; i < 8; i++) {
+        c += (uint64_t)s[i] + H[i - 1];
+        s[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    top += c + H[7];                          // < 2^33
+    s8 = (uint32_t)top;
+    s9 = (uint32_t)(top >> 32);
+#endif
+    fp_fold_top(r, s, s8, s9);
+}
+
+HD void fp_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+    uint32_t c = fe_add_raw(r, a, b);
+    fp_final(r, c);
+}
+
+// a - b, plus p where it borrows: subtracting 2^32 + 977 adds p mod 2^256
+HD void fp_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+    uint32_t mask = 0u - fe_sub_raw(r, a, b);
+    uint32_t pc[8];
+    fe_set_pc(pc);
+    pc[0] &= mask;
+    pc[1] &= mask;
+    fe_sub_raw(r, r, pc);
+}
+
+HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+    uint32_t t[16];
+    fe_mul_wide(t, a, b);
+    fp_reduce_wide(r, t);
+}
+
+HD void fp_sqr(uint32_t r[8], const uint32_t a[8]) {
+    uint32_t t[16];
+    fe_sqr_wide(t, a);
+    fp_reduce_wide(r, t);
+}
 
 HD void fp_mul_small(uint32_t r[8], const uint32_t a[8], uint32_t k) {
     uint32_t s[8];
@@ -210,7 +405,7 @@ HD void fp_mul_small(uint32_t r[8], const uint32_t a[8], uint32_t k) {
         s[i] = (uint32_t)c;
         c >>= 32;
     }
-    fp_fold(r, s, c);
+    fp_fold_top(r, s, (uint32_t)c, 0);
 }
 
 HD void fp_neg(uint32_t r[8], const uint32_t a[8]) {
@@ -253,58 +448,56 @@ HD void fp_sqrt(uint32_t out[8], const uint32_t a[8]) {
 // ---------------------------------------------------------------------------
 // Arithmetic mod n (Montgomery, R = 2^256); inputs < n
 
-HD void fn_mont_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+// r = t / R mod n for t < n R (REDC: 8 rounds of t += m n 2^(32 i) with
+// m = t[i] (-n^-1) mod 2^32; the carry of each round goes to the next),
+// then one branchless conditional subtraction.  Clobbers t.
+HD void fn_redc(uint32_t r[8], uint32_t t[16]) {
     uint32_t n[8];
     fe_set_n(n);
-    uint32_t t[10];
-#pragma unroll
-    for (int i = 0; i < 10; i++) t[i] = 0;
+    uint32_t extra = 0;
 #pragma unroll
     for (int i = 0; i < 8; i++) {
+        uint32_t m = t[i] * SECP_N0INV;
         uint64_t c = 0;
 #pragma unroll
         for (int j = 0; j < 8; j++) {
-            c += (uint64_t)a[j] * b[i] + t[j];
-            t[j] = (uint32_t)c;
+            c += (uint64_t)m * n[j] + t[i + j];
+            t[i + j] = (uint32_t)c;
             c >>= 32;
         }
-        c += t[8];
-        t[8] = (uint32_t)c;
-        t[9] = (uint32_t)(c >> 32);
-        uint32_t m = t[0] * SECP_N0INV;
-        c = (uint64_t)m * n[0] + t[0];
-        c >>= 32;
-#pragma unroll
-        for (int j = 1; j < 8; j++) {
-            c += (uint64_t)m * n[j] + t[j];
-            t[j - 1] = (uint32_t)c;
-            c >>= 32;
-        }
-        c += t[8];
-        t[7] = (uint32_t)c;
-        t[8] = t[9] + (uint32_t)(c >> 32);
+        c += (uint64_t)t[i + 8] + extra;
+        t[i + 8] = (uint32_t)c;
+        extra = (uint32_t)(c >> 32);
     }
-    // t < 2n
-    if (t[8] || fe_geq(t, n)) fe_sub_raw(t, t, n);
-    fe_copy(r, t);
+    // extra * 2^256 + t[8..15] < 2n
+    uint32_t d[8];
+    uint32_t bw = fe_sub_raw(d, t + 8, n);
+    fe_select(r, 0u - (extra | (bw ^ 1u)), d, t + 8);
+}
+
+HD void fn_mont_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+    uint32_t t[16];
+    fe_mul_wide(t, a, b);
+    fn_redc(r, t);
+}
+
+HD void fn_mont_sqr(uint32_t r[8], const uint32_t a[8]) {
+    uint32_t t[16];
+    fe_sqr_wide(t, a);
+    fn_redc(r, t);
 }
 
 HD void fn_mont_sqr_n(uint32_t r[8], const uint32_t a[8], int k) {
     fe_copy(r, a);
 #pragma unroll 1
-    for (int i = 0; i < k; i++) fn_mont_mul(r, r, r);
+    for (int i = 0; i < k; i++) fn_mont_sqr(r, r);
 }
 
-// a^(n-2) mod n (Fermat; 0 maps to 0) for any 256-bit a.  The chain is
-// the plain engine's: a repunit ladder to a^(2^127 - 1), then a scan of
-// the low 129 bits of n - 2.
-HD void fn_inv(uint32_t out[8], const uint32_t a_in[8]) {
-    uint32_t n[8], r2n[8], x[8], t[8];
-    fe_set_n(n);
-    fe_set_r2n(r2n);
-    fe_reduce_once(t, a_in, n);
-    fn_mont_mul(x, t, r2n);                          // x = a*R
-    uint32_t r2[8], r3[8], r6[8], r7[8], acc[8];
+// x^(n-2) in the Montgomery domain (x = a R -> a^-1 R for a != 0).  The
+// chain is the plain engine's: a repunit ladder to x^(2^127 - 1), then a
+// scan of the low 129 bits of n - 2 (255 squarings, 81 multiplications).
+HD void fn_inv_mont(uint32_t acc[8], const uint32_t x[8]) {
+    uint32_t t[8], r2[8], r3[8], r6[8], r7[8];
     fn_mont_sqr_n(t, x, 1);   fn_mont_mul(r2, t, x);
     fn_mont_sqr_n(t, r2, 1);  fn_mont_mul(r3, t, x);
     fn_mont_sqr_n(t, r3, 3);  fn_mont_mul(r6, t, r3);
@@ -325,13 +518,73 @@ HD void fn_inv(uint32_t out[8], const uint32_t a_in[8]) {
                              0xBAAEDCE6u};
 #pragma unroll 1
     for (int i = 128; i >= 0; i--) {
-        fn_mont_mul(acc, acc, acc);
+        fn_mont_sqr(acc, acc);
         uint32_t bit = i == 128 ? 0u : (low[i >> 5] >> (i & 31)) & 1u;
         if (bit) fn_mont_mul(acc, acc, x);
     }
-    uint32_t one[8];
+}
+
+// ---------------------------------------------------------------------------
+// Batch inversion mod n (Montgomery's trick): w_i = s_i^-1 mod n for T
+// values with one Fermat chain in all.  A value s = 0 mod n counts as 1 in
+// the products and gets w = 0 (the convention of the plain inv_batch).
+
+// a = (s mod n, or 1 where that is 0) * R; returns 1 where s = 0 mod n
+HD uint32_t fn_batch_enter(uint32_t a[8], const uint32_t s[8]) {
+    uint32_t n[8], r2[8], t[8];
+    fe_set_n(n);
+    fe_set_r2n(r2);
+    fe_reduce_once(t, s, n);
+    uint32_t z = fe_is_zero(t);
+    t[0] |= z;
+    fn_mont_mul(a, t, r2);
+    return z;
+}
+
+// w = x * m (x in the Montgomery domain, m plain: w plain), 0 where zero
+HD void fn_batch_out(uint32_t w[8], const uint32_t x[8], const uint32_t m[8],
+                     uint32_t zero) {
+    uint32_t z[8];
+    fn_mont_mul(w, x, m);
+    fe_set_small(z, 0);
+    fe_select(w, 0u - zero, z, w);
+}
+
+// The sweep of Montgomery's trick over T nonzero values a_i = s_i R:
+// exclusive prefix products into pre (8 T words), one chain for the
+// inverse of the total, then back down: w_i = prefix_i * (prefix_i s_i)^-1
+// = s_i^-1, plain.  w may not alias a.
+HD void fn_inv_sweep(uint32_t *w, const uint32_t *a, uint32_t *pre, int T) {
+    uint32_t acc[8], inv[8], one[8];
+    fe_set_rn(acc);
+    for (int i = 0; i < T; i++) {
+        fe_copy(pre + 8 * i, acc);
+        fn_mont_mul(acc, acc, a + 8 * i);
+    }
+    fn_inv_mont(inv, acc);
     fe_set_small(one, 1);
-    fn_mont_mul(out, acc, one);                      // leave the domain
+    fn_mont_mul(inv, inv, one);                 // leave the domain
+    for (int i = T - 1; i >= 0; i--) {
+        fn_mont_mul(w + 8 * i, pre + 8 * i, inv);
+        fn_mont_mul(inv, inv, a + 8 * i);
+    }
+}
+
+// w_i = s_i^-1 mod n (0 -> 0) for T values of any 256 bits, 8 words each;
+// a and pre are scratch of 8 T words.  The prep kernel runs the same steps
+// across a block: fn_batch_enter per thread, the products as warp scans,
+// fn_inv_sweep over the warps' products, fn_batch_out per thread.
+HD void fn_inv_batch(uint32_t *w, const uint32_t *s, uint32_t *a,
+                     uint32_t *pre, int T) {
+    for (int i = 0; i < T; i++) fn_batch_enter(a + 8 * i, s + 8 * i);
+    fn_inv_sweep(w, a, pre, T);
+    for (int i = 0; i < T; i++) {
+        uint32_t n[8], t[8], z[8];
+        fe_set_n(n);
+        fe_reduce_once(t, s + 8 * i, n);
+        fe_set_small(z, 0);
+        fe_select(w + 8 * i, 0u - fe_is_zero(t), z, w + 8 * i);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -431,9 +684,10 @@ HD void fe_store(uint32_t *base, long long stride, const uint32_t a[8]) {
 // ---------------------------------------------------------------------------
 // The per-signature bodies of the six kernels
 
-// K1: y = sqrt(x^3 + 7), d = y^2 - (x^3 + 7), w = s^-1 mod n.
-HD void verify_prep_one(const uint32_t qx[8], const uint32_t s[8],
-                        uint32_t y[8], uint32_t d[8], uint32_t w[8]) {
+// K1's per-signature part: y = sqrt(x^3 + 7), d = y^2 - (x^3 + 7).  The
+// inverse w = s^-1 mod n is the block's batch inversion (fn_inv_batch).
+HD void verify_prep_sqrt_one(const uint32_t qx[8], uint32_t y[8],
+                             uint32_t d[8]) {
     uint32_t p[8], x[8], t[8], y2[8], seven[8];
     fe_set_p(p);
     fe_reduce_once(x, qx, p);
@@ -444,7 +698,6 @@ HD void verify_prep_one(const uint32_t qx[8], const uint32_t s[8],
     fp_sqrt(y, y2);
     fp_sqr(t, y);
     fp_sub(d, t, y2);
-    fn_inv(w, s);
 }
 
 // K2: tables of one key.  Entry (c, v, k) of the (6, 16, 8) table block
@@ -499,36 +752,89 @@ HD void tab_load(pt &o, const uint32_t *tab, long long stride, int half,
     fe_load(o.z, b + 2 * plane, stride);
 }
 
-// The joint fixed-base table: entry g holds X, Y, Z as 3 x 8 words.
-HD void joint_load(pt &o, const uint32_t *jt, int g) {
-    const uint32_t *b = jt + g * 24;
+#define GLV_WINDOWS 33
+
+// K3's prefetch slot: the three points one window adds (Qlo[d2l],
+// Qhi[d2h], G[g]) as 72 words; word k of the slot at slot[k * step].  On
+// the device the slot is the thread's column of a shared-memory block
+// (step = threads a block, so a warp's accesses fall on 32 banks) and
+// each word arrives by a 4-byte cp.async; on the host it is a plain array.
+#define GLV_SLOT_WORDS 72
+
+HD void slot_fetch(uint32_t *dst, const uint32_t *src) {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+                 : "memory");
+#else
+    *dst = *src;
+#endif
+}
+
+// Wait for this thread's copies; each thread reads only its own slot.
+HD void slot_wait() {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
+}
+
+HD void glv_fetch(uint32_t *slot, int step, const uint32_t *tab,
+                  long long stride, const uint32_t *jt, int dl, int dh,
+                  int g) {
+    const long long plane = (long long)16 * 8 * stride;
+    const uint32_t *lo = tab + (long long)(dl * 8) * stride;
+    const uint32_t *hi = tab + (long long)((48 + dh) * 8) * stride;
+    const uint32_t *gj = jt + g * 24;
 #pragma unroll
-    for (int k = 0; k < 8; k++) {
-        o.x[k] = LDG(b + k);
-        o.y[k] = LDG(b + 8 + k);
-        o.z[k] = LDG(b + 16 + k);
+    for (int c = 0; c < 3; c++) {
+#pragma unroll
+        for (int k = 0; k < 8; k++) {
+            slot_fetch(slot + (c * 8 + k) * step, lo + c * plane + k * stride);
+            slot_fetch(slot + (24 + c * 8 + k) * step,
+                       hi + c * plane + k * stride);
+            slot_fetch(slot + (48 + c * 8 + k) * step, gj + c * 8 + k);
+        }
     }
 }
 
-#define GLV_WINDOWS 33
+HD void slot_point(pt &q, const uint32_t *slot, int step, int e) {
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+        q.x[k] = slot[(e * 24 + k) * step];
+        q.y[k] = slot[(e * 24 + 8 + k) * step];
+        q.z[k] = slot[(e * 24 + 16 + k) * step];
+    }
+}
 
 // K3: the 33-window GLV scan, acc = 16 acc + Qlo[d2l] + Qhi[d2h] + G[g],
-// from infinity.  Digits and joint indices are (33, B) planes, MSB first.
+// from infinity.  Digits and joint indices are (33, B) planes, MSB first;
+// the joint fixed-base table holds entry g as X, Y, Z in 3 x 8 words.  A
+// window's three points do not depend on the accumulator: their copies
+// start before its four doublings and are waited for after them, and the
+// next window's digits load meanwhile.
 HD void glv_scan_one(const int32_t *d2l, const int32_t *d2h,
                      const int32_t *gidx, long long stride,
-                     const uint32_t *tab, const uint32_t *jt, pt &acc) {
+                     const uint32_t *tab, const uint32_t *jt, uint32_t *slot,
+                     int step, pt &acc) {
     pt q;
     pt_set_inf(acc);
+    int dl = d2l[0], dh = d2h[0], g = gidx[0];
 #pragma unroll 1
     for (int w = 0; w < GLV_WINDOWS; w++) {
+        glv_fetch(slot, step, tab, stride, jt, dl & 15, dh & 15, g & 1023);
+        if (w + 1 < GLV_WINDOWS) {
+            dl = d2l[(w + 1) * stride];
+            dh = d2h[(w + 1) * stride];
+            g = gidx[(w + 1) * stride];
+        }
 #pragma unroll 1
         for (int k = 0; k < 4; k++) pt_double(acc, acc);
-        tab_load(q, tab, stride, 0, d2l[w * stride] & 15);
-        pt_add(acc, acc, q);
-        tab_load(q, tab, stride, 1, d2h[w * stride] & 15);
-        pt_add(acc, acc, q);
-        joint_load(q, jt, gidx[w * stride] & 1023);
-        pt_add(acc, acc, q);
+        slot_wait();
+#pragma unroll 1
+        for (int e = 0; e < 3; e++) {
+            slot_point(q, slot, step, e);
+            pt_add(acc, acc, q);
+        }
     }
 }
 

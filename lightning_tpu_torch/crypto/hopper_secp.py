@@ -53,6 +53,15 @@ from .field import FN, FP, NLIMBS
 PRODUCTS = {"mul_p": 73, "sqr_p": 45, "mul_n": 136, "sqr_n": 108,
             "mul_small_p": 9}
 
+# K1 inverts s by Montgomery's trick, one Fermat chain per block of
+# PREP_THREADS signatures (csrc/verify_prep.cu): per signature 13
+# Montgomery products (entering the domain, 5 + 5 warp scan steps, the
+# product of the warp's other lanes, the output), per block the chain and
+# the 3 x warps + 1 products of the sweep over the warps' products.
+PREP_THREADS = 256
+PREP_MUL_N_SIG = 13
+PREP_MUL_N_BLOCK = 3 * (PREP_THREADS // 32) + 1
+
 
 def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
@@ -405,13 +414,30 @@ KERNELS = (verify_prep_core, build_tables, glv_scan, glv_scan2, dual_mul_v2,
            dual_mul_planes)
 
 
-def field_op_counts() -> dict[str, dict[str, int]]:
+def _batch_inversion_counts(plain: dict, chain: dict) -> dict[str, float]:
+    """K1's operations per signature: its plain version's (the square
+    root, x^3, y^2 and a Fermat chain per signature) less that chain,
+    plus the batch inversion's PREP_MUL_N_SIG Montgomery products and
+    1/PREP_THREADS of the block's chain and PREP_MUL_N_BLOCK products."""
+    out = {k: v - chain.get(k, 0) for k, v in plain.items()}
+    block = dict(chain)
+    block["mul_n"] = block.get("mul_n", 0) + PREP_MUL_N_BLOCK
+    for k, v in block.items():
+        out[k] = out.get(k, 0) + v / PREP_THREADS
+    out["mul_n"] += PREP_MUL_N_SIG
+    return {k: v for k, v in out.items() if v}
+
+
+def field_op_counts() -> dict[str, dict[str, float]]:
     """Field operations per signature of each kernel, by kind (mul_p,
     sqr_p, mul_n, sqr_n, mul_small_p): its plain version run on one CPU
     signature with F.mul and F.mul_small counted; a product of a tensor
     with itself counts as a squaring.  The window scans run one window
     and count it once per window of the kernel (every window does the
-    same operations)."""
+    same operations).  K1's entry counts the kernel's batch inversion
+    (``_batch_inversion_counts``); "verify_prep_chain_per_signature" is
+    its plain version's count, a Fermat chain per signature, the design
+    K1 had before."""
     counts: dict[str, int] = {}
     real_mul, real_small = F.mul, F.mul_small
 
@@ -432,6 +458,7 @@ def field_op_counts() -> dict[str, dict[str, int]]:
     qtab = torch.ones((16, 3, 8, 1), dtype=torch.int32)
     runs = {  # name: (one run, windows)
         "verify_prep": (lambda: verify_prep_plain(x, y), 1),
+        "inv_n": (lambda: S.inv_n(y), 1),
         "build_tables": (lambda: build_tables_plain(x, y, flip), 1),
         "glv_scan": (lambda: glv_scan_plain(digit, digit, digit, *tabs),
                      GLV.NDIGITS_GLV),
@@ -451,6 +478,9 @@ def field_op_counts() -> dict[str, dict[str, int]]:
             out[name] = {k: v * windows for k, v in counts.items()}
     finally:
         F.mul, F.mul_small = real_mul, real_small
+    out["verify_prep_chain_per_signature"] = out["verify_prep"]
+    out["verify_prep"] = _batch_inversion_counts(out["verify_prep"],
+                                                 out.pop("inv_n"))
     return out
 
 

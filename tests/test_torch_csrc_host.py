@@ -1,14 +1,18 @@
 """The CUDA kernels' arithmetic, compiled for the host.
 
 Every function of lightning_tpu_torch/crypto/csrc/secp256k1.cuh is
-__host__ __device__, so the per-signature bodies of the six kernels
-(verify_prep_one, build_tables_one, glv_scan_one, glv_scan2_one,
-dual_mul_v2_one, dual_mul_planes_one) build with the host C++ compiler
-too.  Here they run on the CPU, one signature at a time, against
-the port's plain versions on the same inputs, exactly after
-normalization.  The kernels themselves (grid, memory layout, launch) are
-held against the plain versions on the card by tests/test_torch_gpu.py
-and chip_smoke.py.
+__host__ __device__, so the field operations, the batch inversion mod n
+and the per-signature bodies of the six kernels (verify_prep_sqrt_one,
+build_tables_one, glv_scan_one, glv_scan2_one, dual_mul_v2_one,
+dual_mul_planes_one) build with the host C++ compiler too.  Here they run
+on the CPU against the exact-int oracle and the port's plain versions,
+exactly after normalization.
+
+The header's host pass is its portable C body: the 8x8-word product, the
+squaring, the fold mod p and the add / sub chains have a second body in
+PTX carry chains for the device pass, and that one is held on the card
+only (tests/test_torch_gpu.py, chip_smoke.py), as are the kernels
+themselves (grid, shared memory, warp scans, launch).
 """
 from __future__ import annotations
 
@@ -41,13 +45,33 @@ static void put(const pt &acc, uint32_t *out) {
 }
 extern "C" {
 void c_verify_prep(const uint32_t *x, const uint32_t *s, uint32_t *y,
-                   uint32_t *d, uint32_t *w) { verify_prep_one(x, s, y, d, w); }
+                   uint32_t *d, uint32_t *w) {
+    uint32_t a[8], pre[8];
+    verify_prep_sqrt_one(x, y, d);
+    fn_inv_batch(w, s, a, pre, 1);
+}
+void c_fp_mul(uint32_t *r, const uint32_t *a, const uint32_t *b) { fp_mul(r, a, b); }
+void c_fp_sqr(uint32_t *r, const uint32_t *a) { fp_sqr(r, a); }
+void c_fp_add(uint32_t *r, const uint32_t *a, const uint32_t *b) { fp_add(r, a, b); }
+void c_fp_sub(uint32_t *r, const uint32_t *a, const uint32_t *b) { fp_sub(r, a, b); }
+void c_fn_mont_mul(uint32_t *r, const uint32_t *a, const uint32_t *b) {
+    fn_mont_mul(r, a, b);
+}
+void c_fn_mont_sqr(uint32_t *r, const uint32_t *a) { fn_mont_sqr(r, a); }
+void c_reduce_once(uint32_t *r, const uint32_t *a, int mod_n) {
+    uint32_t m[8];
+    if (mod_n) fe_set_n(m); else fe_set_p(m);
+    fe_reduce_once(r, a, m);
+}
+void c_fn_inv_batch(uint32_t *w, const uint32_t *s, uint32_t *a,
+                    uint32_t *pre, int T) { fn_inv_batch(w, s, a, pre, T); }
 void c_build_tables(const uint32_t *x, const uint32_t *y, uint32_t flip,
                     uint32_t *out) { build_tables_one(x, y, flip, out, 1); }
 void c_glv_scan(const int32_t *dl, const int32_t *dh, const int32_t *g,
                 const uint32_t *tab, const uint32_t *jt, uint32_t *out) {
     pt acc;
-    glv_scan_one(dl, dh, g, 1, tab, jt, acc);
+    uint32_t slot[GLV_SLOT_WORDS];
+    glv_scan_one(dl, dh, g, 1, tab, jt, slot, 1, acc);
     put(acc, out);
 }
 void c_glv_scan2(const int32_t *dl, const int32_t *dh, const uint32_t *tab,
@@ -202,6 +226,94 @@ def test_window_scan_bodies_match_plain(lib, kernel):
         getattr(lib, "c_" + kernel)(*(p for _, p in bufs),
                                     out.ctypes.data_as(ctypes.c_void_p))
         _same_point(out, want, i)
+
+
+R = 2**256
+# Carry edges: 0, 1, m - 1, m - 2, single words of all ones, all ones
+# below the modulus' top words, and the top bit alone.
+EDGES = [0, 1, 2, 2**32 - 1, 2**64 - 1, 2**224 - 1, 2**255, 2**256 - 2**32]
+
+
+def _w8(x: int) -> np.ndarray:
+    return np.array([(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)],
+                    np.uint32)
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _call(fn, *xs: int) -> int:
+    out = np.zeros(8, np.uint32)
+    ins = [_w8(x) for x in xs]
+    fn(_ptr(out), *map(_ptr, ins))
+    return _int(out)
+
+
+def _operands(mod: int, seed: int) -> list[int]:
+    rng = np.random.default_rng(seed)
+    edge = [v % mod for v in EDGES] + [mod - 1, mod - 2]
+    return edge + [int.from_bytes(rng.bytes(32), "big") % mod
+                   for _ in range(12)]
+
+
+def test_fp_ops_match_oracle(lib):
+    """The portable product, squaring and branchless add / sub mod p, at
+    the carry edges and on random values, against exact ints; the
+    squaring also against the product of a value with itself."""
+    vals = _operands(P, 51)
+    for a in vals:
+        sq = _call(lib.c_fp_sqr, a)
+        assert sq == a * a % P == _call(lib.c_fp_mul, a, a)
+        for b in vals[:12]:
+            assert _call(lib.c_fp_mul, a, b) == a * b % P
+            assert _call(lib.c_fp_add, a, b) == (a + b) % P
+            assert _call(lib.c_fp_sub, a, b) == (a - b) % P
+            assert _call(lib.c_fp_sub, b, a) == (b - a) % P
+
+
+def test_montgomery_ops_match_oracle(lib):
+    """Montgomery product and squaring mod n (R = 2^256) at the carry
+    edges and on random values: a b / R and a^2 / R mod n."""
+    rinv = pow(R, -1, N)
+    vals = _operands(N, 52)
+    for a in vals:
+        sq = _call(lib.c_fn_mont_sqr, a)
+        assert sq == a * a * rinv % N == _call(lib.c_fn_mont_mul, a, a)
+        for b in vals[:12]:
+            assert _call(lib.c_fn_mont_mul, a, b) == a * b * rinv % N
+
+
+@pytest.mark.parametrize("mod", [P, N], ids=["p", "n"])
+def test_reduce_once_at_edges(lib, mod):
+    """The branchless a mod m for any 256-bit a, 2^256 - 1 included."""
+    for a in (0, 1, mod - 1, mod, mod + 1, 2**255, 2**256 - 1):
+        out = np.zeros(8, np.uint32)
+        lib.c_reduce_once(_ptr(out), _ptr(_w8(a)), ctypes.c_int(mod == N))
+        assert _int(out) == a % mod
+
+
+@pytest.mark.parametrize("T", [1, 37, 128])
+def test_batch_inversion_matches_pow(lib, T):
+    """Montgomery's trick over T values, the prep kernel's block
+    inversion: w = s^(n-2) mod n for every s of any 256 bits, with 0, n,
+    n + 1 and 2^256 - 1 in the array (0 and n give 0)."""
+    rng = np.random.default_rng(53 + T)
+    edges = [0, N, N + 1, 2**256 - 1]
+    if T == 1:
+        arrays = [[v] for v in edges]
+    else:
+        vals = [int.from_bytes(rng.bytes(32), "big") for _ in range(T)]
+        for k, v in zip((0, T // 2, T - 2, T - 1), edges):
+            vals[k] = v
+        arrays = [vals]
+    for vals in arrays:
+        s = np.concatenate([_w8(v) for v in vals])
+        w, a, pre = (np.zeros(8 * T, np.uint32) for _ in range(3))
+        lib.c_fn_inv_batch(_ptr(w), _ptr(s), _ptr(a), _ptr(pre),
+                           ctypes.c_int(T))
+        for i, v in enumerate(vals):
+            assert _int(w[8 * i:8 * i + 8]) == pow(v % N, N - 2, N), i
 
 
 def test_sources_are_the_built_ones():

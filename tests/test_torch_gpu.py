@@ -49,6 +49,53 @@ def test_verify_prep_kernel_matches_plain(cuda):
         _same(mod, g, w)
 
 
+# s values that are 0 mod n, or the largest 256-bit value
+ZERO_S = (0, ref.N, 2**256 - 1)
+
+
+def test_verify_prep_kernel_ragged_zero_cases(cuda):
+    """K1's block batch inversion at a ragged B (3 blocks and 37 threads):
+    s = 0, n and 2^256 - 1 at the first and last thread of the first two
+    blocks and at B - 1 (0 and n give w = 0, and neither disturbs the
+    other threads of its block)."""
+    gen = np.random.default_rng(48)
+    n = 3 * H.PREP_THREADS + 37
+    T = H.PREP_THREADS
+    ss = [int.from_bytes(gen.bytes(32), "big") for _ in range(n)]
+    for j, i in enumerate((0, T - 1, T, 2 * T - 1, n - 1)):
+        ss[i] = ZERO_S[j % 3]
+    qx, s = _rand(gen, n, 2**256, cuda), F.from_int_array(ss, cuda)
+    got = H.verify_prep_core(qx, s)
+    for mod, g, w in zip((F.FP, F.FP, F.FN), got, H.verify_prep_plain(qx, s)):
+        _same(mod, g, w)
+    assert F.limbs_to_int(got[2][0].cpu()) == 0
+
+
+# Field values at the carry edges of the 8 x 32-bit words
+EDGES = [0, 1, 2, F.P_INT - 1, F.P_INT - 2, F.P_INT, F.P_INT + 1, 2**32 - 1,
+         2**64 - 1, 2**255, 2**256 - 2**32, 2**256 - 1]
+
+
+def test_verify_prep_kernel_at_carry_edges(cuda):
+    xs = [a for a in EDGES for _ in range(len(ZERO_S) + 3)]
+    ss = [b for _ in EDGES for b in (*ZERO_S, 1, ref.N - 1, ref.N + 1)]
+    qx, s = F.from_int_array(xs, cuda), F.from_int_array(ss, cuda)
+    for mod, g, w in zip((F.FP, F.FP, F.FN), H.verify_prep_core(qx, s),
+                         H.verify_prep_plain(qx, s)):
+        _same(mod, g, w)
+
+
+def test_build_tables_kernel_at_carry_edges(cuda):
+    gen = np.random.default_rng(49)
+    bx = F.from_int_array([a for a in EDGES for _ in EDGES], cuda)
+    by = F.from_int_array([b for _ in EDGES for b in EDGES], cuda)
+    flip = torch.as_tensor(gen.integers(0, 2, len(EDGES) ** 2), device=cuda)
+    got = H.tables_to_limbs(H.build_tables(bx, by, flip))
+    for g_half, w_half in zip(got, H.build_tables_plain(bx, by, flip)):
+        for g, w in zip(g_half, w_half):
+            _same(F.FP, g, w)
+
+
 def test_build_tables_kernel_matches_plain(cuda):
     gen = np.random.default_rng(42)
     bx, by = _rand(gen, B, F.P_INT, cuda), _rand(gen, B, F.P_INT, cuda)
@@ -67,6 +114,23 @@ def test_glv_scan_kernel_matches_plain(cuda):
     d2l, d2h = (torch.as_tensor(gen.integers(0, 16, (33, B)), device=cuda)
                 for _ in range(2))
     gidx = torch.as_tensor(gen.integers(0, 1024, (33, B)), device=cuda)
+    tab = H.build_tables(bx, by, flip)
+    got = H.glv_scan(d2l, d2h, gidx, tab)
+    want = H.glv_scan_plain(d2l, d2h, gidx, *H.tables_to_limbs(tab))
+    for g, w in zip(got, want):
+        _same(F.FP, g, w)
+
+
+def test_glv_scan_kernel_full_bucket_ragged(cuda):
+    """K3 at the bucket size plus a ragged 37: more blocks than one wave
+    of 4 blocks an SM holds, the last block partly empty."""
+    gen = np.random.default_rng(50)
+    n = 65536 + 37
+    bx, by = _rand(gen, n, F.P_INT, cuda), _rand(gen, n, F.P_INT, cuda)
+    flip = torch.as_tensor(gen.integers(0, 2, n), device=cuda)
+    d2l, d2h = (torch.as_tensor(gen.integers(0, 16, (33, n)), device=cuda)
+                for _ in range(2))
+    gidx = torch.as_tensor(gen.integers(0, 1024, (33, n)), device=cuda)
     tab = H.build_tables(bx, by, flip)
     got = H.glv_scan(d2l, d2h, gidx, tab)
     want = H.glv_scan_plain(d2l, d2h, gidx, *H.tables_to_limbs(tab))

@@ -137,8 +137,9 @@ def test_field_op_counts():
     addition: 12 multiplications + 2 small multiples (the first table
     addition, Q + Q, squares its three input products); sqrt_p: 253
     squarings + 13 multiplications; inv_n: 255 squarings + 81
-    multiplications.  Per window, K3 does 4 doublings and 3 additions,
-    K4 4 and 4 (33 windows), K5 and K6 4 and 2 (64 windows)."""
+    multiplications, which K1 runs once a block of 256 signatures.  Per
+    window, K3 does 4 doublings and 3 additions, K4 4 and 4 (33 windows),
+    K5 and K6 4 and 2 (64 windows)."""
     counts = H.field_op_counts()
 
     def scan(windows, adds):
@@ -151,6 +152,10 @@ def test_field_op_counts():
     assert counts["dual_mul_v2"] == counts["dual_mul_planes"] == scan(64, 2)
     assert counts["build_tables"] == {"sqr_p": 3, "mul_p": 14 * 12 - 3 + 15,
                                       "mul_small_p": 28}
-    assert counts["verify_prep"] == {"sqr_p": 1 + 253 + 3,
-                                     "mul_p": 1 + 13 + 1,
-                                     "sqr_n": 255, "mul_n": 81}
+    chain = {"sqr_n": 255, "mul_n": 81}
+    sqrt = {"sqr_p": 1 + 253 + 3, "mul_p": 1 + 13 + 1}
+    assert counts["verify_prep_chain_per_signature"] == {**sqrt, **chain}
+    # K1's batch inversion: 13 Montgomery products a signature, and one
+    # chain plus 3 x 8 warps + 1 sweep products a block of 256
+    assert counts["verify_prep"] == {
+        **sqrt, "sqr_n": 255 / 256, "mul_n": 13 + (81 + 25) / 256}
