@@ -8,7 +8,7 @@ Phases, each fatal on failure:
 
 1. device and build: the card's name and power limit; the six CUDA
    kernels built for sm_90a with nvcc, all at once, with each one's
-   ptxas report;
+   ptxas report, and the blocks an SM holds of K2, K3 and K4;
 2. each kernel against its plain PyTorch version on the card, at the
    bucket size, a ragged batch (bucket + 37) and edge inputs, compared
    exactly after normalization mod p or n: K1 on edge x and s, and at the
@@ -32,10 +32,10 @@ Phases, each fatal on failure:
    seeded verdicts again, and the bucket count of launches for exactly
    that engine's kernels, 0 for the others;
 4. timing: each kernel's ms per call at the bucket size (CUDA events),
-   its plain version's ms and its bound; K3 once more with every digit
-   and joint index one fixed value (coalesced or broadcast reads: the gap
-   is what its gathers cost); K1's bound with its batch inversion beside
-   the bound of a Fermat chain per signature.
+   its plain version's ms and its bound; K3 and K4 once more with every
+   digit (and K3's joint index) one fixed value (coalesced or broadcast
+   reads: the gap is what their gathers cost); K1's bound with its batch
+   inversion beside the bound of a Fermat chain per signature.
 
 Prints one {"kernels": [...]} line (each kernel's launches counted on
 the replay of the first engine that runs it, named as "path"), the
@@ -153,12 +153,10 @@ def k1_zero_cases(gen, B, dev, F, H, ref):
     return qx, F.from_int_array(ss, dev)
 
 
-def k2_edges(gen, dev, F, ref, torch):
+def k2_edges(gen, dev, F, torch):
     """K2 on every pair of carry-edge coordinates, either sign flip."""
-    edge = [0, 1, 2, ref.P - 1, ref.P - 2, ref.P, ref.P + 1, 2 ** 32 - 1,
-            2 ** 64 - 1, 2 ** 255, 2 ** 256 - 2 ** 32, 2 ** 256 - 1]
-    xs = [a for a in edge for _ in edge]
-    ys = [b for _ in edge for b in edge]
+    xs = [a for a in F.P_EDGES for _ in F.P_EDGES]
+    ys = [b for _ in F.P_EDGES for b in F.P_EDGES]
     flip = torch.as_tensor(gen.integers(0, 2, len(xs)), device=dev)
     return F.from_int_array(xs, dev), F.from_int_array(ys, dev), flip
 
@@ -396,8 +394,9 @@ def main(argv=None) -> int:
     for k, rep in reports.items():
         smem = "" if "smem" in rep else " | 0 bytes smem"
         log(f"  ptxas {k}: " + " | ".join(rep.splitlines()) + smem)
-    log(f"  glv_scan: {_build.lib('glv_scan').glv_scan_blocks_per_sm()} "
-        f"blocks resident per SM")
+    for k in ("build_tables", "glv_scan", "glv_scan2"):
+        n = getattr(_build.lib(k), f"{k}_blocks_per_sm")()
+        log(f"  {k}: {n} blocks resident per SM")
 
     # -- phase 2: kernels against their plain versions on the card
     gen = np.random.default_rng(args.seed)
@@ -425,7 +424,7 @@ def main(argv=None) -> int:
     B_zero = max(Bk, 2 * H.PREP_THREADS) + 37
     note("verify_prep", compare_k1(H, F, *k1_zero_cases(gen, B_zero, dev, F,
                                                         H, ref)))
-    note("build_tables", compare_k2(H, F, *k2_edges(gen, dev, F, ref, torch)))
+    note("build_tables", compare_k2(H, F, *k2_edges(gen, dev, F, torch)))
     log("compare K1 ragged and zero cases, K2 carry edges: "
         + json.dumps({k: result[k] for k in ("verify_prep", "build_tables")}))
     by_wrapper = {WRAPPER.get(k, k): k for k in SOURCES}
@@ -566,13 +565,16 @@ def main(argv=None) -> int:
             f"bound {b_ms:.4f} ms ({b_by}; field ops {opc[k]}; SM clock "
             f"{clock / 1e6:.0f} MHz)")
         on_path, n = launches[WRAPPER.get(k, k)]
-        if k == "glv_scan":
+        if k in ("glv_scan", "glv_scan2"):
             fixed = [torch.full_like(t, 5) for t in dig]
+            rest = (tab, jt) if k == "glv_scan" else (tab, g1, g2)
+            n_dig = 3 if k == "glv_scan" else 2
             ms_fixed = time_cuda(torch, lambda: H._launch(
-                "glv_scan", *fixed, tab, jt, *o8, B=Bk), reps=20)
-            log(f"time glv_scan fixed digits: {ms_fixed:.4f} ms/call with "
-                f"every digit and joint index 5, {ms:.4f} ms with random "
-                f"ones: the gathers cost {ms - ms_fixed:.4f} ms")
+                k, *fixed[:n_dig], *rest, *o8, B=Bk), reps=20)
+            log(f"time {k} fixed digits: {ms_fixed:.4f} ms/call with "
+                f"every digit{' and joint index' * (n_dig == 3)} 5, "
+                f"{ms:.4f} ms with random ones: the gathers cost "
+                f"{ms - ms_fixed:.4f} ms")
         if k == "verify_prep":
             old_ms, _ = bound_ms(opc["verify_prep_chain_per_signature"], H,
                                  Bk, nbytes, clock)

@@ -9,26 +9,26 @@
 // signature with the accumulator in registers for all 33 windows (the TPU
 // carried it across a sequential grid axis; a CUDA grid has no order).
 // Selection reads the chosen table entry directly, since verification
-// inputs are public.
+// inputs are public.  The body is glv_scan_one<1>, which K4 shares at
+// n_g = 2, as the TPU kernels share _make_glv_kernel.
 //
 // Launch: GLV_THREADS = 256 threads a block and __launch_bounds__ of
-// GLV_MIN_BLOCKS = 2 blocks an SM, which caps a thread at 128 registers
-// (ptxas: 128, with 56 bytes of spill stores): 264 blocks run at once on
-// 132 SMs, so B = 65536 (256 blocks) is one wave.  (128 threads and 4 blocks an SM, and 64 and 8, ran 3-4 % slower
+// GLV_MIN_BLOCKS = 2 blocks an SM, which caps a thread at 128 registers:
+// 264 blocks run at once on 132 SMs, so B = 65536 (256 blocks) is one
+// wave.  (128 threads and 4 blocks an SM, and 64 and 8, ran 3-4 % slower
 // on the H100: kernel_ablation.py.)  The three entries a window adds sit
 // at addresses that depend on the thread's digits, not on the
 // accumulator: each window starts their 72 4-byte cp.async copies into
 // the thread's slot in shared memory before its four doublings and waits
-// for them just before its three additions (glv_scan_one).  The slot is
-// 72 words a thread, word k of thread t at k * GLV_THREADS + t, so a
-// warp's reads fall on 32 banks: 72 KB of dynamic shared memory a block,
-// 144 KB an SM.
+// for them just before its three additions.  The slot is 72 words a
+// thread, word k of thread t at k * GLV_THREADS + t, so a warp's reads
+// fall on 32 banks: 72 KB of dynamic shared memory a block, 144 KB an SM.
 #include <cuda_runtime.h>
 #include "secp256k1.cuh"
 
 #define GLV_THREADS 256
 #define GLV_MIN_BLOCKS (512 / GLV_THREADS)
-#define GLV_SMEM (GLV_SLOT_WORDS * GLV_THREADS * 4)
+#define GLV_SMEM (GLV_SLOT_WORDS(1) * GLV_THREADS * 4)
 
 __global__ void __launch_bounds__(GLV_THREADS, GLV_MIN_BLOCKS)
 glv_scan_kernel(const int32_t *__restrict__ d2l,
@@ -42,8 +42,9 @@ glv_scan_kernel(const int32_t *__restrict__ d2l,
     int i = blockIdx.x * GLV_THREADS + threadIdx.x;
     if (i >= B) return;
     pt acc;
-    glv_scan_one(d2l + i, d2h + i, gidx + i, B, tab + i, jt,
-                 slots + threadIdx.x, GLV_THREADS, acc);
+    const glv_fixed<1> fx = {gidx + i, jt};
+    glv_scan_one<1>(d2l + i, d2h + i, B, tab + i, fx, slots + threadIdx.x,
+                    GLV_THREADS, acc);
     fe_store(ox + i, B, acc.x);
     fe_store(oy + i, B, acc.y);
     fe_store(oz + i, B, acc.z);

@@ -667,6 +667,52 @@ HD void pt_add(pt &o, const pt &p, const pt &q) {
     fe_copy(o.z, Z3);
 }
 
+// pt_add with q = (qx : qy : 1): the same op sequence with q.z = 1
+// substituted, so t2 = p.z * 1 is p.z itself (no product) and q.z's sums
+// add the constant 1.  For a canonical p.z every output is the residue
+// pt_add gives, on or off the curve.
+HD void pt_add_z1(pt &o, const pt &p, const uint32_t qx[8],
+                  const uint32_t qy[8]) {
+    uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], X3[8], Y3[8], Z3[8], one[8];
+    fe_set_small(one, 1);
+    fp_mul(t0, p.x, qx);
+    fp_mul(t1, p.y, qy);
+    fe_copy(t2, p.z);
+    fp_add(t3, p.x, p.y);
+    fp_add(t4, qx, qy);
+    fp_mul(t3, t3, t4);
+    fp_add(t4, t0, t1);
+    fp_sub(t3, t3, t4);
+    fp_add(t4, p.y, p.z);
+    fp_add(X3, qy, one);
+    fp_mul(t4, t4, X3);
+    fp_add(X3, t1, t2);
+    fp_sub(t4, t4, X3);
+    fp_add(X3, p.x, p.z);
+    fp_add(Y3, qx, one);
+    fp_mul(X3, X3, Y3);
+    fp_add(Y3, t0, t2);
+    fp_sub(Y3, X3, Y3);
+    fp_add(X3, t0, t0);
+    fp_add(t0, X3, t0);
+    fp_mul_small(t2, t2, SECP_B3);
+    fp_add(Z3, t1, t2);
+    fp_sub(t1, t1, t2);
+    fp_mul_small(Y3, Y3, SECP_B3);
+    fp_mul(X3, t4, Y3);
+    fp_mul(t2, t3, t1);
+    fp_sub(X3, t2, X3);
+    fp_mul(Y3, Y3, t0);
+    fp_mul(t1, t1, Z3);
+    fp_add(Y3, t1, Y3);
+    fp_mul(t0, t0, t3);
+    fp_mul(Z3, Z3, t4);
+    fp_add(Z3, Z3, t0);
+    fe_copy(o.x, X3);
+    fe_copy(o.y, Y3);
+    fe_copy(o.z, Z3);
+}
+
 // ---------------------------------------------------------------------------
 // Strided access: word k of element i of a limbs-first (8, B) plane lives
 // at base[k * stride + i]; callers pass base already offset by i.
@@ -703,7 +749,8 @@ HD void verify_prep_sqrt_one(const uint32_t qx[8], uint32_t y[8],
 // K2: tables of one key.  Entry (c, v, k) of the (6, 16, 8) table block
 // is at out[((c * 16 + v) * 8 + k) * stride]; c = 0..2 are lo X, Y, Z,
 // c = 3..5 hi X, Y, Z.  lo[v] = v * (bx, byl, 1); hi[v] = (beta * X_v,
-// +-Y_v, Z_v) with Y negated where sflip is set; entry 0 = (0:1:0).
+// +-Y_v, Z_v) with Y negated where sflip is set; entry 0 = (0:1:0).  The
+// base's Z is 1, so each of the 14 additions is pt_add_z1.
 HD void tab_store(uint32_t *out, long long stride, int c, int v,
                   const uint32_t a[8]) {
     fe_store(out + (long long)((c * 16 + v) * 8) * stride, stride, a);
@@ -711,23 +758,24 @@ HD void tab_store(uint32_t *out, long long stride, int c, int v,
 
 HD void build_tables_one(const uint32_t bx[8], const uint32_t byl[8],
                          uint32_t sflip, uint32_t *out, long long stride) {
-    uint32_t p[8], beta[8], t[8];
+    uint32_t p[8], beta[8], t[8], x[8], y[8];
     fe_set_p(p);
     fe_set_beta(beta);
-    pt base, acc, inf;
-    fe_reduce_once(base.x, bx, p);
-    fe_reduce_once(base.y, byl, p);
-    fe_set_small(base.z, 1);
+    pt acc, inf;
+    fe_reduce_once(x, bx, p);
+    fe_reduce_once(y, byl, p);
     pt_set_inf(inf);
     for (int c = 0; c < 2; c++) {
         tab_store(out, stride, 3 * c + 0, 0, inf.x);
         tab_store(out, stride, 3 * c + 1, 0, inf.y);
         tab_store(out, stride, 3 * c + 2, 0, inf.z);
     }
-    acc = base;
+    fe_copy(acc.x, x);
+    fe_copy(acc.y, y);
+    fe_set_small(acc.z, 1);
 #pragma unroll 1
     for (int v = 1; v < 16; v++) {
-        if (v > 1) pt_add(acc, acc, base);
+        if (v > 1) pt_add_z1(acc, acc, x, y);
         tab_store(out, stride, 0, v, acc.x);
         tab_store(out, stride, 1, v, acc.y);
         tab_store(out, stride, 2, v, acc.z);
@@ -743,23 +791,15 @@ HD void build_tables_one(const uint32_t bx[8], const uint32_t byl[8],
     }
 }
 
-HD void tab_load(pt &o, const uint32_t *tab, long long stride, int half,
-                 int v) {
-    const long long plane = (long long)16 * 8 * stride;   // one coordinate
-    const uint32_t *b = tab + (long long)((3 * half * 16 + v) * 8) * stride;
-    fe_load(o.x, b, stride);
-    fe_load(o.y, b + plane, stride);
-    fe_load(o.z, b + 2 * plane, stride);
-}
-
 #define GLV_WINDOWS 33
 
-// K3's prefetch slot: the three points one window adds (Qlo[d2l],
-// Qhi[d2h], G[g]) as 72 words; word k of the slot at slot[k * step].  On
-// the device the slot is the thread's column of a shared-memory block
-// (step = threads a block, so a warp's accesses fall on 32 banks) and
-// each word arrives by a 4-byte cp.async; on the host it is a plain array.
-#define GLV_SLOT_WORDS 72
+// The scan's prefetch slot: the 2 + n_g points one window adds (Qlo[d2l],
+// Qhi[d2h], then the n_g fixed-base points) as 24 words each; word k of
+// the slot at slot[k * step].  On the device the slot is the thread's
+// column of a shared-memory block (step = threads a block, so a warp's
+// accesses fall on 32 banks) and each word arrives by a 4-byte cp.async;
+// on the host it is a plain array.
+#define GLV_SLOT_WORDS(ng) (24 * (2 + (ng)))
 
 HD void slot_fetch(uint32_t *dst, const uint32_t *src) {
 #ifdef __CUDA_ARCH__
@@ -778,13 +818,12 @@ HD void slot_wait() {
 #endif
 }
 
-HD void glv_fetch(uint32_t *slot, int step, const uint32_t *tab,
-                  long long stride, const uint32_t *jt, int dl, int dh,
-                  int g) {
-    const long long plane = (long long)16 * 8 * stride;
+// Slot points 0 and 1: entry dl of the lo table and dh of the hi table.
+HD void tab_fetch(uint32_t *slot, int step, const uint32_t *tab,
+                  long long stride, int dl, int dh) {
+    const long long plane = (long long)16 * 8 * stride;   // one coordinate
     const uint32_t *lo = tab + (long long)(dl * 8) * stride;
     const uint32_t *hi = tab + (long long)((48 + dh) * 8) * stride;
-    const uint32_t *gj = jt + g * 24;
 #pragma unroll
     for (int c = 0; c < 3; c++) {
 #pragma unroll
@@ -792,8 +831,44 @@ HD void glv_fetch(uint32_t *slot, int step, const uint32_t *tab,
             slot_fetch(slot + (c * 8 + k) * step, lo + c * plane + k * stride);
             slot_fetch(slot + (24 + c * 8 + k) * step,
                        hi + c * plane + k * stride);
-            slot_fetch(slot + (48 + c * 8 + k) * step, gj + c * 8 + k);
         }
+    }
+}
+
+// A window's n_g fixed-base points.  n_g = 1 (K3): one entry of the
+// 1024-entry joint G / phi(G) table (X, Y, Z as 3 x 8 words), selected by
+// a (33, B) index plane.  n_g = 2 (K4): row w of the pre-selected,
+// pre-signed G and of the phi(G) points, (33, 3, 8, B) word planes.
+// Callers pass the planes offset by the signature.
+template <int NG> struct glv_fixed;
+template <> struct glv_fixed<1> {
+    const int32_t *gidx;
+    const uint32_t *jt;
+};
+template <> struct glv_fixed<2> {
+    const uint32_t *g1, *g2;
+};
+
+// What selects window w's fixed-base points: its joint index, or w itself.
+HD int fixed_sel(const glv_fixed<1> &f, int w, long long stride) {
+    return f.gidx[w * stride];
+}
+HD int fixed_sel(const glv_fixed<2> &, int w, long long) { return w; }
+
+HD void fixed_fetch(uint32_t *slot, int step, const glv_fixed<1> &f, int g,
+                    long long) {
+    const uint32_t *gj = f.jt + (g & 1023) * 24;
+#pragma unroll
+    for (int k = 0; k < 24; k++) slot_fetch(slot + k * step, gj + k);
+}
+
+HD void fixed_fetch(uint32_t *slot, int step, const glv_fixed<2> &f, int w,
+                    long long stride) {
+    const long long row = (long long)w * 24 * stride;
+#pragma unroll
+    for (int k = 0; k < 24; k++) {
+        slot_fetch(slot + k * step, f.g1 + row + k * stride);
+        slot_fetch(slot + (24 + k) * step, f.g2 + row + k * stride);
     }
 }
 
@@ -806,70 +881,49 @@ HD void slot_point(pt &q, const uint32_t *slot, int step, int e) {
     }
 }
 
-// K3: the 33-window GLV scan, acc = 16 acc + Qlo[d2l] + Qhi[d2h] + G[g],
-// from infinity.  Digits and joint indices are (33, B) planes, MSB first;
-// the joint fixed-base table holds entry g as X, Y, Z in 3 x 8 words.  A
-// window's three points do not depend on the accumulator: their copies
-// start before its four doublings and are waited for after them, and the
-// next window's digits load meanwhile.
+// K3 (n_g = 1) and K4 (n_g = 2), one body as the TPU's
+// _make_glv_kernel(n_g) is: the 33-window GLV scan from infinity,
+// acc = 16 acc + Qlo[d2l] + Qhi[d2h] + the window's n_g fixed-base
+// points, added in that order.  Digits are (33, B) planes, MSB first; tab
+// is K2's (6, 16, 8) table block.  A window's points do not depend on the
+// accumulator: their copies start before its four doublings and are
+// waited for after them, and the next window's digits load meanwhile.
+template <int NG>
 HD void glv_scan_one(const int32_t *d2l, const int32_t *d2h,
-                     const int32_t *gidx, long long stride,
-                     const uint32_t *tab, const uint32_t *jt, uint32_t *slot,
-                     int step, pt &acc) {
+                     long long stride, const uint32_t *tab,
+                     const glv_fixed<NG> &fx, uint32_t *slot, int step,
+                     pt &acc) {
     pt q;
     pt_set_inf(acc);
-    int dl = d2l[0], dh = d2h[0], g = gidx[0];
+    int dl = d2l[0], dh = d2h[0], g = fixed_sel(fx, 0, stride);
 #pragma unroll 1
     for (int w = 0; w < GLV_WINDOWS; w++) {
-        glv_fetch(slot, step, tab, stride, jt, dl & 15, dh & 15, g & 1023);
+        tab_fetch(slot, step, tab, stride, dl & 15, dh & 15);
+        fixed_fetch(slot + 48 * step, step, fx, g, stride);
         if (w + 1 < GLV_WINDOWS) {
             dl = d2l[(w + 1) * stride];
             dh = d2h[(w + 1) * stride];
-            g = gidx[(w + 1) * stride];
+            g = fixed_sel(fx, w + 1, stride);
         }
 #pragma unroll 1
         for (int k = 0; k < 4; k++) pt_double(acc, acc);
         slot_wait();
 #pragma unroll 1
-        for (int e = 0; e < 3; e++) {
+        for (int e = 0; e < 2 + NG; e++) {
             slot_point(q, slot, step, e);
             pt_add(acc, acc, q);
         }
     }
 }
 
-// Word planes, the points K4-K6 take: entry j of an (n, 3, 8, B) plane
-// tensor (entry, coordinate, word, signature); callers pass base offset
-// by the signature.
+// Word planes, the points K5 and K6 take: entry j of an (n, 3, 8, B)
+// plane tensor (entry, coordinate, word, signature); callers pass base
+// offset by the signature.
 HD void plane_load(pt &o, const uint32_t *planes, long long stride, int j) {
     const uint32_t *b = planes + (long long)j * 24 * stride;
     fe_load(o.x, b, stride);
     fe_load(o.y, b + 8 * stride, stride);
     fe_load(o.z, b + 16 * stride, stride);
-}
-
-// K4: the 33-window GLV scan with separate fixed-base additions,
-// acc = 16 acc + Qlo[d2l] + Qhi[d2h] + G1[w] + G2[w], from infinity.
-// Digits are (33, B) planes, MSB first; g1, g2 the pre-selected,
-// pre-signed G and phi(G) points as (33, 3, 8, B) planes.
-HD void glv_scan2_one(const int32_t *d2l, const int32_t *d2h,
-                      long long stride, const uint32_t *tab,
-                      const uint32_t *g1, const uint32_t *g2, pt &acc) {
-    pt q;
-    pt_set_inf(acc);
-#pragma unroll 1
-    for (int w = 0; w < GLV_WINDOWS; w++) {
-#pragma unroll 1
-        for (int k = 0; k < 4; k++) pt_double(acc, acc);
-        tab_load(q, tab, stride, 0, d2l[w * stride] & 15);
-        pt_add(acc, acc, q);
-        tab_load(q, tab, stride, 1, d2h[w * stride] & 15);
-        pt_add(acc, acc, q);
-        plane_load(q, g1, stride, w);
-        pt_add(acc, acc, q);
-        plane_load(q, g2, stride, w);
-        pt_add(acc, acc, q);
-    }
 }
 
 #define DUAL_WINDOWS 64

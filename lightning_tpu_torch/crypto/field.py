@@ -98,6 +98,10 @@ P_INT = 2**256 - 2**32 - 977
 N_INT = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 FP = Modulus(P_INT, "p")
 FN = Modulus(N_INT, "n")
+# Coordinates at the carry edges of p and of 8 x 32-bit words, canonical
+# or not, for the kernels' edge checks.
+P_EDGES = (0, 1, 2, P_INT - 1, P_INT - 2, P_INT, P_INT + 1, 2**32 - 1,
+           2**64 - 1, 2**255, 2**256 - 2**32, 2**256 - 1)
 
 
 _CONSTS: dict = {}

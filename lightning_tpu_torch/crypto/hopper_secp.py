@@ -21,8 +21,9 @@ tensors it launches its kernel or raises: there is no fallback.
 | K6 csrc/dual_mul_planes.cu | ``dual_mul_planes`` | ``_dual_mul_kernel``, pallas_call :807 |
 
 All six are bound by 32-bit integer multiplies: ``field_op_counts``
-counts the field operations of each plain version (the kernels repeat
-them op for op) and ``PRODUCTS`` holds the fewest 32-bit products each
+counts the field operations of each plain version, less its products by
+K2's base's Z = 1 (the kernels repeat them op for op, K2 without those
+products) and ``PRODUCTS`` holds the fewest 32-bit products each
 needs; their bound is computed from the two.  The kernels
 keep field elements as 8 x 32-bit words (``field.to_u32x8``), limbs first
 with the batch fastest; the conversion from and to radix-2^13 limbs is
@@ -432,19 +433,35 @@ def field_op_counts() -> dict[str, dict[str, float]]:
     """Field operations per signature of each kernel, by kind (mul_p,
     sqr_p, mul_n, sqr_n, mul_small_p): its plain version run on one CPU
     signature with F.mul and F.mul_small counted; a product of a tensor
-    with itself counts as a squaring.  The window scans run one window
-    and count it once per window of the kernel (every window does the
-    same operations).  K1's entry counts the kernel's batch inversion
+    with itself counts as a squaring.  K2's base has the constant Z = 1,
+    which its kernel adds by ``pt_add_z1``: a product by that one is not
+    work the function needs, and is not counted.  The window scans run
+    one window and count it once per window of the kernel (every window
+    does the same operations).  K1's entry counts the kernel's batch inversion
     (``_batch_inversion_counts``); "verify_prep_chain_per_signature" is
     its plain version's count, a Fermat chain per signature, the design
     K1 had before."""
     counts: dict[str, int] = {}
-    real_mul, real_small = F.mul, F.mul_small
+    real_mul, real_small, real_one = F.mul, F.mul_small, F.one
+    ones: list[torch.Tensor] = []    # K2's base Z while build_tables runs
 
     def mul(mod, a, b):
+        if any(t is o for o in ones for t in (a, b)):
+            return real_mul(mod, a, b)
         kind = f"{'sqr' if a is b else 'mul'}_{mod.name}"
         counts[kind] = counts.get(kind, 0) + 1
         return real_mul(mod, a, b)
+
+    def build_tables_run():
+        def one(*a, **k):
+            ones.append(real_one(*a, **k))
+            return ones[-1]
+        F.one = one
+        try:
+            return build_tables_plain(x, y, flip)
+        finally:
+            F.one = real_one
+            ones.clear()
 
     def mul_small(mod, a, k):
         counts["mul_small_p"] = counts.get("mul_small_p", 0) + 1
@@ -459,7 +476,7 @@ def field_op_counts() -> dict[str, dict[str, float]]:
     runs = {  # name: (one run, windows)
         "verify_prep": (lambda: verify_prep_plain(x, y), 1),
         "inv_n": (lambda: S.inv_n(y), 1),
-        "build_tables": (lambda: build_tables_plain(x, y, flip), 1),
+        "build_tables": (build_tables_run, 1),
         "glv_scan": (lambda: glv_scan_plain(digit, digit, digit, *tabs),
                      GLV.NDIGITS_GLV),
         "glv_scan2": (lambda: glv_scan2_plain(digit, digit, *tabs, point,

@@ -11,31 +11,35 @@ sources), unpacked outside git, for example
         | tar -x -C lightning_tpu_torch/_build/parent
 
 Variants, each built with ``_build.NVCC_FLAGS`` (one nvcc process each,
-all at once):
+all at once), in the order of their steps:
 
-* K3 ``glv_scan``: ``parent`` (DIR's source and header); ``field`` (the
-  parent's window loop, which reads a window's entries after its
-  doublings, over this tree's field layer, 128 threads, no launch
-  bounds); ``bounds`` (``field`` with ``__launch_bounds__(128, 4)``);
-  ``prefetch`` (this tree's source: the cp.async slot, 256 threads a
-  block); ``prefetch64`` and ``prefetch128`` (the same at 64 and 128
-  threads a block);
-* K1 ``verify_prep``: ``parent``; ``chain`` (this tree's field layer, a
-  Fermat chain per thread); ``warp0`` (the batch inversion over 128
-  signatures with the chain on signature warp 0, which takes its square
-  roots after it); ``batch128`` (the chain on a warp of its own, 128
-  signatures a block); ``batch`` (this tree's source, 256); ``batch512``;
-* K2, K4, K5, K6: ``parent`` and ``new`` (this tree's source).
+* K2 ``build_tables``: ``parent`` (DIR's source and header); ``z1``
+  (this tree's source, where every addition is ``pt_add_z1``, at the
+  parent's launch: 128 threads a block, no launch bounds); ``z1_64``
+  (this tree's launch) and ``z1_32``; launch bounds of (threads a
+  block, blocks an SM) ``b256x2`` and ``b128x4`` (128 registers a
+  thread) and ``b128x3`` (168);
+* K4 ``glv_scan2``: ``parent``; ``bounds`` (the parent's window loop,
+  which reads a window's points after its doublings, over this tree's
+  header at K3's launch: 256 threads, ``__launch_bounds__(256, 2)``);
+  ``prefetch`` (this tree's source: K3's cp.async slot through the scan
+  body K3 and K4 share, 256 threads); ``prefetch128`` (the same at 128
+  threads and 4 blocks an SM);
+* K3 ``glv_scan`` (the shared body at n_g = 1), K1 ``verify_prep``, K5
+  ``dual_mul_v2``, K6 ``dual_mul_planes``: ``parent`` and ``new`` (this
+  tree's source).
 
 Every variant's outputs must equal this tree's kernel's on the same
 random inputs at B = bucket (the script fails otherwise).  Then each is
 timed with CUDA events (20 calls after 2 warm-up calls) in the order of
 its steps and back again (a b c c b a), so a drift of the card's clock
-shows as a difference between a variant's two readings; K3's variants
-also with every digit and joint index one fixed value.  Prints one line
-per reading and the ptxas report of every variant, and writes all of it,
-with the card's name and power limit, to FILE as JSON if --out is given.
-Needs a CUDA device and nvcc.
+shows as a difference between a variant's two readings; K3's and K4's
+variants also with every digit and joint index one fixed value, so the
+difference is what their gathers cost.  Prints one line per reading and
+the ptxas report of every variant (with its blocks per SM where the
+library reports them), names the variant each kernel ships, and writes
+all of it, with the card's name and power limit, to FILE as JSON if
+--out is given.  Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -55,26 +59,24 @@ from .crypto import hopper_secp as H
 
 REPS, WARM = 20, 2
 
-# The parent's K3 window loop over this tree's header; BOUNDS becomes the
-# variant's launch bounds.
-K3_OLD_LOOP = r"""
+# The parent's K4 window loop over this tree's header, at K3's launch.
+K4_OLD_LOOP = r"""
 #include <cuda_runtime.h>
 #include "secp256k1.cuh"
-__device__ __forceinline__ void joint_load(pt &o, const uint32_t *jt, int g) {
-    const uint32_t *b = jt + g * 24;
-#pragma unroll
-    for (int k = 0; k < 8; k++) {
-        o.x[k] = __ldg(b + k);
-        o.y[k] = __ldg(b + 8 + k);
-        o.z[k] = __ldg(b + 16 + k);
-    }
+__device__ __forceinline__ void tab_load(pt &o, const uint32_t *tab,
+                                         long long stride, int half, int v) {
+    const long long plane = (long long)16 * 8 * stride;
+    const uint32_t *b = tab + (long long)((3 * half * 16 + v) * 8) * stride;
+    fe_load(o.x, b, stride);
+    fe_load(o.y, b + plane, stride);
+    fe_load(o.z, b + 2 * plane, stride);
 }
-__global__ void BOUNDS glv_scan_kernel(
+__global__ void __launch_bounds__(256, 2) glv_scan2_kernel(
         const int32_t *__restrict__ d2l, const int32_t *__restrict__ d2h,
-        const int32_t *__restrict__ gidx, const uint32_t *__restrict__ tab,
-        const uint32_t *__restrict__ jt, uint32_t *__restrict__ ox,
+        const uint32_t *__restrict__ tab, const uint32_t *__restrict__ g1,
+        const uint32_t *__restrict__ g2, uint32_t *__restrict__ ox,
         uint32_t *__restrict__ oy, uint32_t *__restrict__ oz, int B) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int i = blockIdx.x * 256 + threadIdx.x;
     if (i >= B) return;
     const long long st = B;
     pt acc, q;
@@ -87,121 +89,33 @@ __global__ void BOUNDS glv_scan_kernel(
         pt_add(acc, acc, q);
         tab_load(q, tab + i, st, 1, d2h[w * st + i] & 15);
         pt_add(acc, acc, q);
-        joint_load(q, jt, gidx[w * st + i] & 1023);
+        plane_load(q, g1 + i, st, w);
+        pt_add(acc, acc, q);
+        plane_load(q, g2 + i, st, w);
         pt_add(acc, acc, q);
     }
     fe_store(ox + i, B, acc.x);
     fe_store(oy + i, B, acc.y);
     fe_store(oz + i, B, acc.z);
 }
-extern "C" int glv_scan_launch(const void *d2l, const void *d2h,
-                               const void *gidx, const void *tab,
-                               const void *jt, void *x, void *y, void *z,
-                               int B, void *stream) {
+extern "C" int glv_scan2_launch(const void *d2l, const void *d2h,
+                                const void *tab, const void *g1,
+                                const void *g2, void *x, void *y, void *z,
+                                int B, void *stream) {
     if (B <= 0) return 0;
-    glv_scan_kernel<<<(B + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        (const int32_t *)d2l, (const int32_t *)d2h, (const int32_t *)gidx,
-        (const uint32_t *)tab, (const uint32_t *)jt, (uint32_t *)x,
+    glv_scan2_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        (const int32_t *)d2l, (const int32_t *)d2h, (const uint32_t *)tab,
+        (const uint32_t *)g1, (const uint32_t *)g2, (uint32_t *)x,
         (uint32_t *)y, (uint32_t *)z, B);
     return (int)cudaGetLastError();
 }
 """
 
-# K1 with a Fermat chain per thread over this tree's header.
-K1_CHAIN = r"""
-#include <cuda_runtime.h>
-#include "secp256k1.cuh"
-__global__ void verify_prep_kernel(
-        const uint32_t *__restrict__ qx, const uint32_t *__restrict__ s,
-        uint32_t *__restrict__ oy, uint32_t *__restrict__ od,
-        uint32_t *__restrict__ ow, int B) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    uint32_t x[8], sv[8], y[8], d[8], a[8], w[8], one[8];
-    fe_load(x, qx + i, B);
-    fe_load(sv, s + i, B);
-    verify_prep_sqrt_one(x, y, d);
-    uint32_t z = fn_batch_enter(a, sv);
-    fn_inv_mont(w, a);
-    fe_set_small(one, 1);
-    fn_batch_out(w, w, one, z);
-    fe_store(oy + i, B, y);
-    fe_store(od + i, B, d);
-    fe_store(ow + i, B, w);
-}
-extern "C" int verify_prep_launch(const void *qx, const void *s, void *y,
-                                  void *d, void *w, int B, void *stream) {
-    if (B <= 0) return 0;
-    verify_prep_kernel<<<(B + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        (const uint32_t *)qx, (const uint32_t *)s, (uint32_t *)y,
-        (uint32_t *)d, (uint32_t *)w, B);
-    return (int)cudaGetLastError();
-}
-"""
-
-# K1's batch inversion with the chain on signature warp 0, which takes its
-# own square roots after the chain, over this tree's header.
-K1_WARP0 = r"""
-#include <cuda_runtime.h>
-#include "secp256k1.cuh"
-#define PREP_WARPS 4
-__device__ __forceinline__ void sqrt_store(const uint32_t *qx, uint32_t *oy,
-                                           uint32_t *od, int i, int B) {
-    uint32_t x[8], y[8], d[8];
-    fe_load(x, qx + i, B);
-    verify_prep_sqrt_one(x, y, d);
-    fe_store(oy + i, B, y);
-    fe_store(od + i, B, d);
-}
-__global__ void __launch_bounds__(128) verify_prep_kernel(
-        const uint32_t *__restrict__ qx, const uint32_t *__restrict__ s,
-        uint32_t *__restrict__ oy, uint32_t *__restrict__ od,
-        uint32_t *__restrict__ ow, int B) {
-    __shared__ uint32_t warp_prod[32], warp_inv[32], scratch[32];
-    const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-    const int i = blockIdx.x * 128 + t;
-    const bool live = i < B;
-    uint32_t sv[8], pre[8], suf[8], up[8], dn[8], x[8];
-    if (live) fe_load(sv, s + i, B); else fe_set_small(sv, 1);
-    const uint32_t zero = fn_batch_enter(pre, sv);
-    fe_copy(suf, pre);
-#pragma unroll 1
-    for (int dist = 1; dist < 32; dist <<= 1) {
-        for (int k = 0; k < 8; k++) {
-            up[k] = __shfl_up_sync(0xFFFFFFFFu, pre[k], dist);
-            dn[k] = __shfl_down_sync(0xFFFFFFFFu, suf[k], dist);
-        }
-        if (lane >= dist) fn_mont_mul(pre, up, pre);
-        if (lane + dist < 32) fn_mont_mul(suf, suf, dn);
-    }
-    if (lane == 31) fe_copy(warp_prod + 8 * wid, pre);
-    for (int k = 0; k < 8; k++) {
-        up[k] = __shfl_up_sync(0xFFFFFFFFu, pre[k], 1);
-        dn[k] = __shfl_down_sync(0xFFFFFFFFu, suf[k], 1);
-    }
-    if (lane == 0) fe_set_rn(up);
-    if (lane == 31) fe_set_rn(dn);
-    fn_mont_mul(x, up, dn);
-    __syncthreads();
-    if (t == 0) fn_inv_sweep(warp_inv, warp_prod, scratch, PREP_WARPS);
-    else if (wid != 0 && live) sqrt_store(qx, oy, od, i, B);
-    __syncthreads();
-    if (wid == 0 && live) sqrt_store(qx, oy, od, i, B);
-    if (live) {
-        uint32_t w[8];
-        fn_batch_out(w, x, warp_inv + 8 * wid, zero);
-        fe_store(ow + i, B, w);
-    }
-}
-extern "C" int verify_prep_launch(const void *qx, const void *s, void *y,
-                                  void *d, void *w, int B, void *stream) {
-    if (B <= 0) return 0;
-    verify_prep_kernel<<<(B + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        (const uint32_t *)qx, (const uint32_t *)s, (uint32_t *)y,
-        (uint32_t *)d, (uint32_t *)w, B);
-    return (int)cudaGetLastError();
-}
-"""
+# K3 and K4 are also timed with fixed digits (their first n inputs).
+FIXED_INPUTS = {"glv_scan": 3, "glv_scan2": 2}
+# Timing orders beyond "every step, and back".
+ORDERS = {"glv_scan2": [["parent", "bounds", "prefetch"],
+                        ["prefetch", "prefetch128"]]}
 
 
 def variants(parent: str) -> dict[str, dict[str, tuple]]:
@@ -212,36 +126,60 @@ def variants(parent: str) -> dict[str, dict[str, tuple]]:
     def own(k):
         return os.path.join(here, _build.SOURCES[k])
 
-    def threads(k, macro, n):
+    def subst(k, bounds=None, **defines):
+        """This tree's source of k with each ``#define NAME ...`` line
+        of `defines` set to its value and, if `bounds` is given, its
+        kernel under ``__launch_bounds__(*bounds)`` (text, since nvcc's
+        -D would split the value at its comma)."""
         with open(own(k)) as f:
             src = f.read()
-        return re.sub(rf"#define {macro} \d+", f"#define {macro} {n}", src)
+        for name, val in defines.items():
+            src, n = re.subn(rf"#define {name}\b.*", f"#define {name} {val}",
+                             src)
+            assert n == 1, f"{k}: no #define {name}"
+        if bounds:
+            head = f"__global__ void\n{k}_kernel("
+            assert head in src, f"{k}: no kernel head to bound"
+            src = src.replace(head, "__global__ void __launch_bounds__"
+                              f"({bounds[0]}, {bounds[1]})\n{k}_kernel(")
+        return src
 
     def old(k):
         return os.path.join(parent, _build.SOURCES[k])
 
     out = {
-        "glv_scan": {
-            "parent": (old("glv_scan"), parent),
-            "field": (K3_OLD_LOOP.replace("BOUNDS", ""), here),
-            "bounds": (K3_OLD_LOOP.replace("BOUNDS",
-                                           "__launch_bounds__(128, 4)"),
-                       here),
-            "prefetch": (own("glv_scan"), here),
-            "prefetch64": (threads("glv_scan", "GLV_THREADS", 64), here),
-            "prefetch128": (threads("glv_scan", "GLV_THREADS", 128), here),
+        "build_tables": {
+            "parent": (old("build_tables"), parent),
+            **{f"z1{s}": (subst("build_tables", K2_THREADS=t), here)
+               for s, t in (("", 128), ("_64", 64), ("_32", 32))},
+            **{f"b{t}x{n}": (subst("build_tables", (t, n), K2_THREADS=t),
+                             here) for t, n in ((256, 2), (128, 4), (128, 3))},
         },
-        "verify_prep": {
-            "parent": (old("verify_prep"), parent),
-            "chain": (K1_CHAIN, here),
-            "warp0": (K1_WARP0, here),
-            "batch128": (threads("verify_prep", "PREP_THREADS", 128), here),
-            "batch": (own("verify_prep"), here),
-            "batch512": (threads("verify_prep", "PREP_THREADS", 512), here),
+        "glv_scan2": {
+            "parent": (old("glv_scan2"), parent),
+            "bounds": (K4_OLD_LOOP, here),
+            "prefetch": (own("glv_scan2"), here),
+            "prefetch128": (subst("glv_scan2", GLV_THREADS=128), here),
         },
     }
-    for k in ("build_tables", "glv_scan2", "dual_mul_v2", "dual_mul_planes"):
+    for k in ("glv_scan", "verify_prep", "dual_mul_v2", "dual_mul_planes"):
         out[k] = {"parent": (old(k), parent), "new": (own(k), here)}
+    return out
+
+
+def shipped(table) -> dict[str, str]:
+    """kernel -> the variant whose source is this tree's."""
+    out = {}
+    for k, vs in table.items():
+        with open(os.path.join(_build.CSRC, _build.SOURCES[k])) as f:
+            mine = f.read()
+        for v, (src, inc) in vs.items():
+            text = src
+            if os.path.exists(src):
+                with open(src) as f:
+                    text = f.read()
+            if inc == _build.CSRC and text == mine:
+                out[k] = v
     return out
 
 
@@ -357,14 +295,16 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     dev, B = torch.device("cuda"), args.bucket
     _build.build_all()
-    built = build(variants(os.path.abspath(args.parent)),
-                  os.path.join(_build.BUILD_DIR, "ablation"))
-    record = {"card": card, "B": B, "reps": REPS, "ptxas": {}, "ms": {},
-              "fixed_digits_ms": {}}
+    table = variants(os.path.abspath(args.parent))
+    built = build(table, os.path.join(_build.BUILD_DIR, "ablation"))
+    record = {"card": card, "B": B, "reps": REPS, "shipped": shipped(table),
+              "ptxas": {}, "ms": {}, "fixed_digits_ms": {}}
+    print(f"shipped: {json.dumps(record['shipped'])}", flush=True)
     for k, vs in built.items():
         for v, (lib, rep) in vs.items():
-            if hasattr(lib, "glv_scan_blocks_per_sm"):
-                rep += f" | {lib.glv_scan_blocks_per_sm()} blocks per SM"
+            if hasattr(lib, f"{k}_blocks_per_sm"):
+                n = getattr(lib, f"{k}_blocks_per_sm")()
+                rep += f" | {n} blocks per SM"
             record["ptxas"][f"{k}/{v}"] = rep
             print(f"ptxas {k}/{v}: {rep}", flush=True)
     data = inputs(B, dev)
@@ -382,24 +322,21 @@ def main(argv=None) -> int:
             assert all(torch.equal(o, w) for o, w in zip(outs, want)), \
                 f"{k}/{v} disagrees with this tree's kernel"
         steps = list(runs)
-        if k == "glv_scan":
-            main_steps = ["parent", "field", "bounds", "prefetch"]
-            orders = [main_steps, ["prefetch", "prefetch64", "prefetch128"]]
-        else:
-            orders = [steps]
         record["ms"][k] = {v: [] for v in steps}
-        for order in orders:
+        for order in ORDERS.get(k, [steps]):
             for v in order + order[::-1]:
                 ms = time_ms(runs[v])
                 record["ms"][k][v].append(ms)
                 print(f"time {k}/{v}: {ms:.4f} ms/call at B={B}", flush=True)
-        if k == "glv_scan":
-            fixed = [torch.full_like(t, 5) for t in ins[:3]]
-            frun = {v: launcher(lib, k, fixed + ins[3:] + outs, B)
+        if k in FIXED_INPUTS:
+            n = FIXED_INPUTS[k]
+            fixed = [torch.full_like(t, 5) for t in ins[:n]]
+            frun = {v: launcher(lib, k, fixed + ins[n:] + outs, B)
                     for v, (lib, _) in vs.items()}
-            for v in main_steps + main_steps[::-1]:
+            record["fixed_digits_ms"][k] = {v: [] for v in steps}
+            for v in steps + steps[::-1]:
                 ms = time_ms(frun[v])
-                record["fixed_digits_ms"].setdefault(v, []).append(ms)
+                record["fixed_digits_ms"][k][v].append(ms)
                 print(f"time {k}/{v} fixed digits: {ms:.4f} ms/call",
                       flush=True)
     if args.out:

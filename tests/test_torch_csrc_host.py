@@ -3,8 +3,9 @@
 Every function of lightning_tpu_torch/crypto/csrc/secp256k1.cuh is
 __host__ __device__, so the field operations, the batch inversion mod n
 and the per-signature bodies of the six kernels (verify_prep_sqrt_one,
-build_tables_one, glv_scan_one, glv_scan2_one, dual_mul_v2_one,
-dual_mul_planes_one) build with the host C++ compiler too.  Here they run
+build_tables_one with its pt_add_z1, the scan body glv_scan_one<n_g> of
+K3 (n_g = 1) and K4 (n_g = 2), dual_mul_v2_one, dual_mul_planes_one)
+build with the host C++ compiler too.  Here they run
 on the CPU against the exact-int oracle and the port's plain versions,
 exactly after normalization.
 
@@ -38,6 +39,8 @@ P, N = ref.P, ref.N
 
 SHIM = r"""
 #include "secp256k1.cuh"
+// A slot for the scan bodies at any step up to SLOT_STEP_MAX.
+#define SLOT_STEP_MAX 4
 static void put(const pt &acc, uint32_t *out) {
     for (int k = 0; k < 8; k++) {
         out[k] = acc.x[k]; out[8 + k] = acc.y[k]; out[16 + k] = acc.z[k];
@@ -67,17 +70,34 @@ void c_fn_inv_batch(uint32_t *w, const uint32_t *s, uint32_t *a,
                     uint32_t *pre, int T) { fn_inv_batch(w, s, a, pre, T); }
 void c_build_tables(const uint32_t *x, const uint32_t *y, uint32_t flip,
                     uint32_t *out) { build_tables_one(x, y, flip, out, 1); }
+// p + (qx : qy : 1) by pt_add_z1 (z1 set) or by pt_add with q.z = 1
+void c_pt_add_q1(const uint32_t *p, const uint32_t *qx, const uint32_t *qy,
+                 int z1, uint32_t *out) {
+    pt a, q, r;
+    for (int k = 0; k < 8; k++) {
+        a.x[k] = p[k]; a.y[k] = p[8 + k]; a.z[k] = p[16 + k];
+        q.x[k] = qx[k]; q.y[k] = qy[k];
+    }
+    fe_set_small(q.z, 1);
+    if (z1) pt_add_z1(r, a, qx, qy); else pt_add(r, a, q);
+    put(r, out);
+}
 void c_glv_scan(const int32_t *dl, const int32_t *dh, const int32_t *g,
-                const uint32_t *tab, const uint32_t *jt, uint32_t *out) {
+                const uint32_t *tab, const uint32_t *jt, uint32_t *out,
+                int step) {
     pt acc;
-    uint32_t slot[GLV_SLOT_WORDS];
-    glv_scan_one(dl, dh, g, 1, tab, jt, slot, 1, acc);
+    uint32_t slot[GLV_SLOT_WORDS(1) * SLOT_STEP_MAX];
+    const glv_fixed<1> fx = {g, jt};
+    glv_scan_one<1>(dl, dh, 1, tab, fx, slot, step, acc);
     put(acc, out);
 }
 void c_glv_scan2(const int32_t *dl, const int32_t *dh, const uint32_t *tab,
-                 const uint32_t *g1, const uint32_t *g2, uint32_t *out) {
+                 const uint32_t *g1, const uint32_t *g2, uint32_t *out,
+                 int step) {
     pt acc;
-    glv_scan2_one(dl, dh, 1, tab, g1, g2, acc);
+    uint32_t slot[GLV_SLOT_WORDS(2) * SLOT_STEP_MAX];
+    const glv_fixed<2> fx = {g1, g2};
+    glv_scan_one<2>(dl, dh, 1, tab, fx, slot, step, acc);
     put(acc, out);
 }
 void c_dual_mul_v2(const int32_t *d2, const uint32_t *qtab,
@@ -168,7 +188,7 @@ def test_build_tables_and_scan_bodies_match_plain(lib):
         lib.c_glv_scan(*(p for _, p in digits),
                        tab.ctypes.data_as(ctypes.c_void_p),
                        jt.ctypes.data_as(ctypes.c_void_p),
-                       out.ctypes.data_as(ctypes.c_void_p))
+                       out.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(1))
         for c, coord in enumerate((X, Y, Z)):
             assert _int(out[8 * c:8 * c + 8]) == F.limbs_to_int(coord[i]) % P
 
@@ -198,19 +218,35 @@ def _same_point(out, point, i):
         assert _int(out[8 * c:8 * c + 8]) == F.limbs_to_int(coord[i]) % P
 
 
-@pytest.mark.parametrize("kernel", ["glv_scan2", "dual_mul_v2",
-                                    "dual_mul_planes"])
-def test_window_scan_bodies_match_plain(lib, kernel):
-    """K4, K5 and K6 on the operands their engines give them."""
+# The scan body's slot words lie `step` apart (threads a block on the
+# card); step 3 also checks that no two words of a slot collide.
+@pytest.mark.parametrize("kernel,step", [
+    pytest.param("glv_scan", 1, id="glv_scan"),
+    pytest.param("glv_scan", 3, id="glv_scan-step3"),
+    pytest.param("glv_scan2", 1, id="glv_scan2"),
+    pytest.param("glv_scan2", 3, id="glv_scan2-step3"),
+    pytest.param("dual_mul_v2", 0, id="dual_mul_v2"),
+    pytest.param("dual_mul_planes", 0, id="dual_mul_planes")])
+def test_window_scan_bodies_match_plain(lib, kernel, step):
+    """K3 and K4 (the scan body at n_g = 1 and 2), K5 and K6 on the
+    operands their engines give them."""
     n = 2
     u1, u2, qx, qy = _scan_inputs(33, n)
-    if kernel == "glv_scan2":
-        d2l, d2h, s2l, s2h, g1, g2 = E._glv_prep(u1, u2)
+    shared = ()
+    if kernel.startswith("glv_scan"):
+        glv_prep = E.glv_prep_joint if kernel == "glv_scan" else E._glv_prep
+        d2l, d2h, s2l, s2h, *fixed = glv_prep(u1, u2)
         qy_neg = F.sub(F.FP, torch.zeros_like(qy), qy)
         byl = torch.where(s2l[:, None], qy_neg, qy)
         lo, hi = H.build_tables_plain(qx, byl, (s2l ^ s2h).to(torch.int64))
-        ops = (d2l, d2h, H.tables_to_words(lo, hi), g1, g2)
-        want = H.glv_scan2_plain(d2l, d2h, lo, hi, g1, g2)
+        tab = H.tables_to_words(lo, hi)
+        if kernel == "glv_scan":
+            ops = (d2l, d2h, fixed[0], tab)
+            shared = (_buf(H._joint_table_u32("cpu").numpy())[1],)
+            want = H.glv_scan_plain(d2l, d2h, fixed[0], lo, hi)
+        else:
+            ops = (d2l, d2h, tab, *fixed)
+            want = H.glv_scan2_plain(d2l, d2h, lo, hi, *fixed)
     else:
         d1, d2 = (E._msb_planes(u, 64) for u in (u1, u2))
         words = H.to_words(S._build_window(qx, qy))
@@ -220,12 +256,40 @@ def test_window_scan_bodies_match_plain(lib, kernel):
         else:
             ops = (E._select_planes(words, d2), gs)
         want = getattr(H, kernel + "_plain")(*ops)
+    extra = (ctypes.c_int(step),) if step else ()
     for i in range(n):
         out = np.zeros(24, np.uint32)
         bufs = [_col(t, i) for t in ops]
-        getattr(lib, "c_" + kernel)(*(p for _, p in bufs),
-                                    out.ctypes.data_as(ctypes.c_void_p))
+        getattr(lib, "c_" + kernel)(*(p for _, p in bufs), *shared,
+                                    out.ctypes.data_as(ctypes.c_void_p),
+                                    *extra)
         _same_point(out, want, i)
+
+
+def test_pt_add_z1_matches_pt_add(lib):
+    """K2's addition of its base (qx : qy : 1) by pt_add_z1 is limb-equal
+    to pt_add with q.z = 1: on random coordinates (on the curve or not,
+    reduced mod p as K2 reduces its inputs) and on every pair of the
+    carry-edge coordinates F.P_EDGES as q (those K2's edge check on the
+    card takes), with p's X, Y, Z taken from the same edges."""
+    gen = np.random.default_rng(34)
+    qs = [(a % P, b % P) for a in F.P_EDGES for b in F.P_EDGES]
+    edge = sorted({e % P for e in F.P_EDGES})
+    ps = [tuple(edge[(3 * j + c) % len(edge)] for c in (0, 1, 2))
+          for j in range(len(qs))]
+    rnd = [[int.from_bytes(gen.bytes(32), "big") % P for _ in range(5)]
+           for _ in range(40)]
+    qs += [tuple(r[:2]) for r in rnd]
+    ps += [tuple(r[2:]) for r in rnd]
+    for (qx, qy), p in zip(qs, ps):
+        pw = np.concatenate([_w8(c) for c in p])
+        outs = []
+        for z1 in (0, 1):
+            out = np.zeros(24, np.uint32)
+            lib.c_pt_add_q1(_ptr(pw), _ptr(_w8(qx)), _ptr(_w8(qy)),
+                            ctypes.c_int(z1), _ptr(out))
+            outs.append(out)
+        assert np.array_equal(*outs), (p, qx, qy)
 
 
 R = 2**256

@@ -18,7 +18,8 @@ from lightning_tpu_torch.crypto import ref_python as ref
 
 pytestmark = pytest.mark.gpu
 
-B = 1000 + 37      # not a multiple of the 128-thread block
+B = 1000 + 37      # not a multiple of a 128- or 256-thread block
+FULL = 65536 + 37  # the bucket size and a ragged 37
 
 
 @pytest.fixture
@@ -107,6 +108,19 @@ def test_build_tables_kernel_matches_plain(cuda):
             _same(F.FP, g, w)
 
 
+def test_build_tables_kernel_full_bucket_ragged(cuda):
+    """K2 at the bucket size plus a ragged 37, not a multiple of its
+    block: a full wave of blocks at its launch bounds and a last block
+    partly empty."""
+    gen = np.random.default_rng(51)
+    bx, by = _rand(gen, FULL, F.P_INT, cuda), _rand(gen, FULL, F.P_INT, cuda)
+    flip = torch.as_tensor(gen.integers(0, 2, FULL), device=cuda)
+    got = H.tables_to_limbs(H.build_tables(bx, by, flip))
+    for g_half, w_half in zip(got, H.build_tables_plain(bx, by, flip)):
+        for g, w in zip(g_half, w_half):
+            _same(F.FP, g, w)
+
+
 def test_glv_scan_kernel_matches_plain(cuda):
     gen = np.random.default_rng(43)
     bx, by = _rand(gen, B, F.P_INT, cuda), _rand(gen, B, F.P_INT, cuda)
@@ -122,10 +136,11 @@ def test_glv_scan_kernel_matches_plain(cuda):
 
 
 def test_glv_scan_kernel_full_bucket_ragged(cuda):
-    """K3 at the bucket size plus a ragged 37: more blocks than one wave
-    of 4 blocks an SM holds, the last block partly empty."""
+    """K3 at the bucket size plus a ragged 37: more blocks of 256
+    threads than one wave of 2 blocks an SM (72 KB slots each) holds,
+    the last block partly empty."""
     gen = np.random.default_rng(50)
-    n = 65536 + 37
+    n = FULL
     bx, by = _rand(gen, n, F.P_INT, cuda), _rand(gen, n, F.P_INT, cuda)
     flip = torch.as_tensor(gen.integers(0, 2, n), device=cuda)
     d2l, d2h = (torch.as_tensor(gen.integers(0, 16, (33, n)), device=cuda)
@@ -184,6 +199,22 @@ def test_glv_scan2_kernel_matches_plain(cuda):
     before = H.glv_scan2.launches
     got = H.glv_scan2(d2l, d2h, tab, g1, g2)
     assert H.glv_scan2.launches == before + 1
+    _same_point(got, H.glv_scan2_plain(d2l, d2h, *H.tables_to_limbs(tab),
+                                       g1, g2))
+
+
+def test_glv_scan2_kernel_full_bucket_ragged(cuda):
+    """K4 at the bucket size plus a ragged 37: the shared scan body at
+    n_g = 2, its 96 KB shared-memory slots at 2 blocks an SM, over more
+    blocks than one wave holds, the last block partly empty."""
+    gen = np.random.default_rng(52)
+    bx, by = _rand(gen, FULL, F.P_INT, cuda), _rand(gen, FULL, F.P_INT, cuda)
+    flip = torch.as_tensor(gen.integers(0, 2, FULL), device=cuda)
+    d2l, d2h = (torch.as_tensor(gen.integers(0, 16, (33, FULL)), device=cuda)
+                for _ in range(2))
+    g1, g2 = (_words(gen, (33, 3, 8, FULL), cuda) for _ in range(2))
+    tab = H.build_tables(bx, by, flip)
+    got = H.glv_scan2(d2l, d2h, tab, g1, g2)
     _same_point(got, H.glv_scan2_plain(d2l, d2h, *H.tables_to_limbs(tab),
                                        g1, g2))
 

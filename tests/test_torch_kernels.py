@@ -134,8 +134,9 @@ def test_glv_scan_plain_matches_dual_mul_glv():
 
 def test_field_op_counts():
     """RCB doubling: 2 squarings + 6 multiplications + 1 small multiple;
-    addition: 12 multiplications + 2 small multiples (the first table
-    addition, Q + Q, squares its three input products); sqrt_p: 253
+    addition: 12 multiplications + 2 small multiples; K2's addition of its
+    base (Z = 1, pt_add_z1) 11, and the first of them, Q + Q, squares its
+    X and Y products; sqrt_p: 253
     squarings + 13 multiplications; inv_n: 255 squarings + 81
     multiplications, which K1 runs once a block of 256 signatures.  Per
     window, K3 does 4 doublings and 3 additions, K4 4 and 4 (33 windows),
@@ -150,7 +151,8 @@ def test_field_op_counts():
     assert counts["glv_scan"] == scan(33, 3)
     assert counts["glv_scan2"] == scan(33, 4)
     assert counts["dual_mul_v2"] == counts["dual_mul_planes"] == scan(64, 2)
-    assert counts["build_tables"] == {"sqr_p": 3, "mul_p": 14 * 12 - 3 + 15,
+    assert counts["build_tables"] == {"sqr_p": 2,
+                                      "mul_p": 14 * 11 - 2 + 15,
                                       "mul_small_p": 28}
     chain = {"sqr_n": 255, "mul_n": 81}
     sqrt = {"sqr_p": 1 + 253 + 3, "mul_p": 1 + 13 + 1}
