@@ -8,18 +8,19 @@ Phases, each fatal on failure:
 
 1. device and build: the card's name and power limit; the six CUDA
    kernels built for sm_90a with nvcc, all at once, with each one's
-   ptxas report, and the blocks an SM holds of K2, K3 and K4;
+   ptxas report, and the blocks an SM holds of K2-K6;
 2. each kernel against its plain PyTorch version on the card, at the
    bucket size, a ragged batch (bucket + 37) and edge inputs, compared
-   exactly after normalization mod p or n: K1 on edge x and s, and at the
-   ragged size with s = 0, n and 2^256 - 1 at the first and last thread
-   of its first two blocks and at B - 1; K2 on carry-edge coordinates
-   (0, 1, p - 1, p - 2, p, words of all ones); every kernel engine's dual
-   multiplication on edge scalars (u = 0, 1, n - 1 on both sides, and
-   u1*G = -u2*Q) on the card, in the plain path and in the exact-int
-   oracle; a verify batch of edge signatures (s = 0, off-curve x, u = 0,
-   u = n - 1, r < p - n, high S, bad tag) under every kernel engine, on
-   the card, in the plain path and in the oracle;
+   exactly after normalization mod p or n: K5 also with every digit 0
+   (the table's infinity entry) and every digit 15, at both sizes; K1 on
+   edge x and s, and at the ragged size with s = 0, n and 2^256 - 1 at
+   the first and last thread of its first two blocks and at B - 1; K2 on
+   carry-edge coordinates (0, 1, p - 1, p - 2, p, words of all ones);
+   every kernel engine's dual multiplication on edge scalars (u = 0, 1,
+   n - 1 on both sides, and u1*G = -u2*Q) on the card, in the plain path
+   and in the exact-int oracle; a verify batch of edge signatures (s = 0,
+   off-curve x, u = 0, u = n - 1, r < p - n, high S, bad tag) under every
+   kernel engine, on the card, in the plain path and in the oracle;
 3. the main path: a synthetic gossip_store (612,500 signatures by
    default, with seeded corrupted signatures, an off-curve key, a bad key
    tag and oversized rows) through load_store -> check_crcs ->
@@ -32,9 +33,10 @@ Phases, each fatal on failure:
    seeded verdicts again, and the bucket count of launches for exactly
    that engine's kernels, 0 for the others;
 4. timing: each kernel's ms per call at the bucket size (CUDA events),
-   its plain version's ms and its bound; K3 and K4 once more with every
-   digit (and K3's joint index) one fixed value (coalesced or broadcast
-   reads: the gap is what their gathers cost); K1's bound with its batch
+   its plain version's ms and its bound; K3, K4 and K5 once more with
+   every digit (and K3's joint index) one fixed value (coalesced or
+   broadcast reads: the gap is what their gathers cost); K1's bound with
+   its batch
    inversion beside the bound of a Fermat chain per signature.
 
 Prints one {"kernels": [...]} line (each kernel's launches counted on
@@ -221,9 +223,14 @@ def compare_k4(H, F, d2l, d2h, tab, g1, g2):
     return point_mismatches(F, got, want)
 
 
-def k5_inputs(gen, B, dev, torch):
+def k5_inputs(gen, B, dev, torch, digit=None):
+    """K5's operands: digits (random, or every one `digit`), the per-key
+    table in its (B, 16, 3, 8) layout and the G planes."""
     d2 = torch.as_tensor(gen.integers(0, 16, (64, B)), device=dev)
-    return (d2, rand_words(gen, (16, 3, 8, B), dev, torch),
+    if digit is not None:
+        d2.fill_(digit)
+    qtab = rand_words(gen, (16, 3, 8, B), dev, torch)
+    return (d2, qtab.permute(3, 0, 1, 2).contiguous(),
             rand_words(gen, (64, 3, 8, B), dev, torch))
 
 
@@ -392,9 +399,10 @@ def main(argv=None) -> int:
     log(f"build: {len(reports)} kernels for sm_90a "
         f"({' '.join(_build.NVCC_FLAGS)}) in {time.perf_counter() - t0:.1f} s")
     for k, rep in reports.items():
-        smem = "" if "smem" in rep else " | 0 bytes smem"
+        smem = "" if "smem" in rep else " | 0 bytes static smem"
         log(f"  ptxas {k}: " + " | ".join(rep.splitlines()) + smem)
-    for k in ("build_tables", "glv_scan", "glv_scan2"):
+    for k in ("build_tables", "glv_scan", "glv_scan2", "dual_mul_v2",
+              "dual_mul_planes"):
         n = getattr(_build.lib(k), f"{k}_blocks_per_sm")()
         log(f"  {k}: {n} blocks resident per SM")
 
@@ -420,6 +428,11 @@ def main(argv=None) -> int:
                                                             torch)))
         torch.cuda.synchronize()
         log(f"compare B={B}: " + json.dumps(result))
+        for digit in (0, 15):
+            got = compare_k5(H, F, *k5_inputs(gen, B, dev, torch, digit))
+            note("dual_mul_v2", got)
+            log(f"compare dual_mul_v2 B={B}, every digit {digit}: {got[0]} "
+                f"rows differ, max |limb difference| {got[1]}")
     note("verify_prep", compare_k1(H, F, *k1_edges(dev, F, ref)))
     B_zero = max(Bk, 2 * H.PREP_THREADS) + 37
     note("verify_prep", compare_k1(H, F, *k1_zero_cases(gen, B_zero, dev, F,
@@ -575,6 +588,13 @@ def main(argv=None) -> int:
                 f"every digit{' and joint index' * (n_dig == 3)} 5, "
                 f"{ms:.4f} ms with random ones: the gathers cost "
                 f"{ms - ms_fixed:.4f} ms")
+        if k == "dual_mul_v2":
+            d2_5 = torch.full_like(d2_32, 5)
+            ms_fixed = time_cuda(torch, lambda: H._launch(
+                k, d2_5, qtab, gs, *o8, B=Bk), reps=20)
+            log(f"time {k} fixed digits: {ms_fixed:.4f} ms/call with "
+                f"every digit 5, {ms:.4f} ms with random ones: the gather "
+                f"costs {ms - ms_fixed:.4f} ms")
         if k == "verify_prep":
             old_ms, _ = bound_ms(opc["verify_prep_chain_per_signature"], H,
                                  Bk, nbytes, clock)

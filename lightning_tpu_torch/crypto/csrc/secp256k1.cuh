@@ -916,50 +916,127 @@ HD void glv_scan_one(const int32_t *d2l, const int32_t *d2h,
     }
 }
 
-// Word planes, the points K5 and K6 take: entry j of an (n, 3, 8, B)
-// plane tensor (entry, coordinate, word, signature); callers pass base
-// offset by the signature.
-HD void plane_load(pt &o, const uint32_t *planes, long long stride, int j) {
-    const uint32_t *b = planes + (long long)j * 24 * stride;
-    fe_load(o.x, b, stride);
-    fe_load(o.y, b + 8 * stride, stride);
-    fe_load(o.z, b + 16 * stride, stride);
-}
-
 #define DUAL_WINDOWS 64
 
-// K5: the 64-window scan without GLV, acc = 16 acc + Qtab[d2] + G[w],
-// from infinity.  d2 is a (64, B) digit plane, MSB first; qtab the
-// per-key table v*Q as (16, 3, 8, B) planes, selected here; gs the
-// pre-selected G points as (64, 3, 8, B) planes.
-HD void dual_mul_v2_one(const int32_t *d2, long long stride,
-                        const uint32_t *qtab, const uint32_t *gs, pt &acc) {
-    pt q;
-    pt_set_inf(acc);
-#pragma unroll 1
-    for (int w = 0; w < DUAL_WINDOWS; w++) {
-#pragma unroll 1
-        for (int k = 0; k < 4; k++) pt_double(acc, acc);
-        plane_load(q, qtab, stride, d2[w * stride] & 15);
-        pt_add(acc, acc, q);
-        plane_load(q, gs, stride, w);
-        pt_add(acc, acc, q);
-    }
+// The 64-window scans' prefetch slot: the two points a window adds, Q then
+// G, 24 words each, in a block's slot array of DUAL_SLOT_WORDS words a
+// thread.  G, and Q where it comes from word planes, lie word by word
+// (word k of thread t's point e at slots[(24 e + k) step + t], so a warp's
+// accesses fall on 32 banks); K5's Q lies in 16-byte chunks (chunk c of
+// thread t at slots[4 (c step + t)], a warp's 16-byte reads on
+// consecutive addresses).  step is the threads of a block on the device,
+// t the thread's index; the host passes any step > t.
+#define DUAL_SLOT_WORDS 48
+
+HD void slot_fetch16(uint32_t *dst, const uint32_t *src) {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+                 : "memory");
+#else
+    for (int k = 0; k < 4; k++) dst[k] = src[k];
+#endif
 }
 
-// K6: the 64-window scan over pre-selected points,
-// acc = 16 acc + Q[w] + G[w], from infinity; qs, gs are (64, 3, 8, B).
-HD void dual_mul_planes_one(const uint32_t *qs, const uint32_t *gs,
-                            long long stride, pt &acc) {
+// Entry j of (n, 3, 8, B) word planes into a thread's slot column (word k
+// at col[k * step]); callers pass the planes offset by the signature.
+HD void plane_fetch(uint32_t *col, int step, const uint32_t *planes,
+                    long long stride, int j) {
+    const uint32_t *b = planes + (long long)j * 24 * stride;
+#pragma unroll
+    for (int k = 0; k < 24; k++) slot_fetch(col + k * step, b + k * stride);
+}
+
+// What selects window w's Q point, and where it comes from.  K5: entry
+// d2[w] of the key's table v*Q, signature-major (B, 16, 3, 8) words, so
+// an entry is 24 contiguous words; callers pass the digit plane offset by
+// the signature and the table at the signature's 384 words.  K6: row w of
+// the pre-selected (64, 3, 8, B) Q planes, offset by the signature.
+#define DUAL_QTAB_WORDS (16 * 24)
+struct dual_q_table {
+    const int32_t *d2;
+    const uint32_t *qtab;
+};
+struct dual_q_planes {
+    const uint32_t *qs;
+};
+
+HD int q_sel(const dual_q_table &f, int w, long long stride) {
+    return f.d2[w * stride] & 15;
+}
+HD int q_sel(const dual_q_planes &, int w, long long) { return w; }
+
+HD void q_fetch(uint32_t *slots, int t, int step, const dual_q_table &f,
+                int j, long long) {
+    const uint32_t *e = f.qtab + j * 24;
+#pragma unroll
+    for (int c = 0; c < 6; c++)
+        slot_fetch16(slots + 4 * (c * step + t), e + 4 * c);
+}
+HD void q_fetch(uint32_t *slots, int t, int step, const dual_q_planes &f,
+                int j, long long stride) {
+    plane_fetch(slots + t, step, f.qs, stride, j);
+}
+
+HD void q_point(pt &q, const uint32_t *slots, int t, int step,
+                const dual_q_table &) {
+    uint32_t w[24];
+#pragma unroll
+    for (int c = 0; c < 6; c++) {
+        const uint32_t *s = slots + 4 * (c * step + t);
+#ifdef __CUDA_ARCH__
+        const uint4 v = *reinterpret_cast<const uint4 *>(s);
+        w[4 * c] = v.x; w[4 * c + 1] = v.y; w[4 * c + 2] = v.z;
+        w[4 * c + 3] = v.w;
+#else
+        for (int k = 0; k < 4; k++) w[4 * c + k] = s[k];
+#endif
+    }
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+        q.x[k] = w[k];
+        q.y[k] = w[8 + k];
+        q.z[k] = w[16 + k];
+    }
+}
+HD void q_point(pt &q, const uint32_t *slots, int t, int step,
+                const dual_q_planes &) {
+    slot_point(q, slots + t, step, 0);
+}
+
+// K5 (dual_q_table) and K6 (dual_q_planes), one body: the 64-window scan
+// from infinity, acc = 16 acc + Q_w + G[w], added in that order, as the
+// TPU's _dual_mul_kernel_v2 and _dual_mul_kernel add them.  gs holds the
+// pre-selected G points, (64, 3, 8, B) planes offset by the signature.  A
+// window's two points do not depend on the accumulator: their copies start
+// before its four doublings and are waited for after them, and the next
+// window's Q selector loads meanwhile.  The two additions go through one
+// loop, so the code holds one copy of pt_add, as it holds one of
+// pt_double: with a second copy the kernel is about 11,100 SASS
+// instructions instead of 7,100 and took 3-16 % longer on the H100
+// (kernel_ablation.py, steps bounds and one_add).
+template <class Q>
+HD void dual_scan_one(const Q &qsel, const uint32_t *gs, long long stride,
+                      uint32_t *slots, int t, int step, pt &acc) {
     pt q;
+    uint32_t *gcol = slots + 24 * step + t;
     pt_set_inf(acc);
+    int j = q_sel(qsel, 0, stride);
 #pragma unroll 1
     for (int w = 0; w < DUAL_WINDOWS; w++) {
+        q_fetch(slots, t, step, qsel, j, stride);
+        plane_fetch(gcol, step, gs, stride, w);
+        if (w + 1 < DUAL_WINDOWS) j = q_sel(qsel, w + 1, stride);
 #pragma unroll 1
         for (int k = 0; k < 4; k++) pt_double(acc, acc);
-        plane_load(q, qs, stride, w);
-        pt_add(acc, acc, q);
-        plane_load(q, gs, stride, w);
-        pt_add(acc, acc, q);
+        slot_wait();
+#pragma unroll 1
+        for (int e = 0; e < 2; e++) {
+            if (e == 0)
+                q_point(q, slots, t, step, qsel);
+            else
+                slot_point(q, gcol, step, 0);
+            pt_add(acc, acc, q);
+        }
     }
 }

@@ -152,9 +152,9 @@ def dual_mul_pallas_v2(u1, u2, qx, qy):
     """K5: the per-key table v*Q goes in whole and is selected in the
     kernel; the G points are selected outside."""
     d1, d2 = _msb_planes(u1, S.NDIGITS), _msb_planes(u2, S.NDIGITS)
-    qtab = H.to_words(S._build_window(qx, qy)).permute(1, 2, 3, 0)
+    qtab = H.to_words(S._build_window(qx, qy))
     gs = _select_shared_planes(shared_words("g", str(u1.device)), d1)
-    return H.dual_mul_v2(d2, qtab.contiguous(), gs)
+    return H.dual_mul_v2(d2, qtab, gs)
 
 
 def dual_mul_pallas_glv(u1, u2, qx, qy):

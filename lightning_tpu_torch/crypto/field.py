@@ -466,6 +466,18 @@ def to_int_list(limbs) -> list[int]:
 
 def to_u32x8(a: torch.Tensor) -> torch.Tensor:
     """(B, 20) canonical radix-13 limbs -> (8, B) int32 words."""
+    return torch.stack(_u32_words(a), dim=0).to(torch.int32).contiguous()
+
+
+def to_u32_rows(a: torch.Tensor) -> torch.Tensor:
+    """(B, 20) canonical radix-13 limbs -> (B, 8) int32 words, each
+    element's 8 words contiguous."""
+    return torch.stack(_u32_words(a), dim=-1).to(torch.int32)
+
+
+def _u32_words(a: torch.Tensor) -> list[torch.Tensor]:
+    """The 8 little-endian 32-bit words of canonical limbs (..., 20), each
+    (...,) int64 in the int32 range."""
     words = []
     for k in range(8):
         w = torch.zeros_like(a[..., 0])
@@ -476,7 +488,7 @@ def to_u32x8(a: torch.Tensor) -> torch.Tensor:
                 w = w | part
         w = w & 0xFFFFFFFF
         words.append(torch.where(w >= (1 << 31), w - (1 << 32), w))
-    return torch.stack(words, dim=0).to(torch.int32).contiguous()
+    return words
 
 
 def from_u32x8(w: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,10 @@ needs; their bound is computed from the two.  The kernels
 keep field elements as 8 x 32-bit words (``field.to_u32x8``), limbs first
 with the batch fastest; the conversion from and to radix-2^13 limbs is
 plain torch in the wrappers.  K4-K6 take their points as word planes,
-(n, 3, 8, B) int32: entry, coordinate, word, signature.  Which operands
-are selected in the kernel and which outside is what tells the engines
-apart (``engines.py``), so each kernel keeps its TPU twin's contract.
+(n, 3, 8, B) int32: entry, coordinate, word, signature; K5 takes its
+per-key table signature-major, (B, 16, 3, 8).  Which operands are
+selected in the kernel and which outside is what tells the engines apart
+(``engines.py``), so each kernel keeps its TPU twin's contract.
 """
 from __future__ import annotations
 
@@ -109,9 +110,9 @@ def _u32x8(a: torch.Tensor) -> torch.Tensor:
 
 def to_words(a: torch.Tensor) -> torch.Tensor:
     """Limbs (..., 20), any representative mod p -> canonical kernel
-    words (..., 8) int32."""
-    flat = F.to_u32x8(F.normalize(FP, a.reshape(-1, NLIMBS)))
-    return flat.T.reshape(*a.shape[:-1], 8)
+    words (..., 8) int32, contiguous."""
+    rows = F.to_u32_rows(F.normalize(FP, a.reshape(-1, NLIMBS)))
+    return rows.reshape(*a.shape[:-1], 8)
 
 
 def _plane_point(planes: torch.Tensor, j: int):
@@ -345,11 +346,11 @@ glv_scan2.launches = 0
 def dual_mul_v2_plain(d2, qtab, gs):
     """Plain version of K5: 64 windows of acc = 16 acc + qtab[d2[w]] +
     gs[w] from infinity.  d2: (64, B) digits of u2, most significant
-    first; qtab: (16, 3, 8, B) word planes of v*Q; gs: (64, 3, 8, B)
-    word planes of the pre-selected G points."""
+    first; qtab: the per-key table v*Q as (B, 16, 3, 8) words; gs:
+    (64, 3, 8, B) word planes of the pre-selected G points."""
     B = d2.shape[1]
     ar = torch.arange(B, device=d2.device)
-    tab = [torch.stack([F.from_u32x8(qtab[v, c]) for v in range(16)])
+    tab = [torch.stack([F.from_u32x8(qtab[:, v, c].T) for v in range(16)])
            for c in range(3)]
     acc = S.point_inf((B,), d2.device)
     for w in range(d2.shape[0]):
@@ -361,13 +362,18 @@ def dual_mul_v2_plain(d2, qtab, gs):
 
 
 def dual_mul_v2(d2, qtab, gs):
-    """K5 wrapper: projective point as three (B, 20) limb tensors."""
+    """K5 wrapper: projective point as three (B, 20) limb tensors.  qtab
+    is signature-major, (B, 16, 3, 8) int32 (``to_words`` of the
+    (B, 16, 3, 20) window table), 16-byte aligned on the card: the kernel
+    copies an entry in 16-byte pieces."""
     if not _on_card(d2):
         return dual_mul_v2_plain(d2, qtab, gs)
     B = d2.shape[1]
     _expect("dual_mul_v2", d2, (S.NDIGITS, B))
-    _expect("dual_mul_v2", qtab, (16, 3, 8, B))
+    _expect("dual_mul_v2", qtab, (B, 16, 3, 8))
     _expect("dual_mul_v2", gs, (S.NDIGITS, 3, 8, B))
+    if qtab.data_ptr() % 16:
+        raise ValueError("dual_mul_v2: the table must be 16-byte aligned")
     out = _scan_out(B, d2.device)
     _launch("dual_mul_v2", *_i32(d2), qtab, gs, *out, B=B)
     dual_mul_v2.launches += 1
@@ -472,7 +478,7 @@ def field_op_counts() -> dict[str, dict[str, float]]:
     digit = torch.ones((1, 1), dtype=torch.int64)
     tabs = build_tables_plain(x, y, flip)
     point = torch.ones((1, 3, 8, 1), dtype=torch.int32)
-    qtab = torch.ones((16, 3, 8, 1), dtype=torch.int32)
+    qtab = torch.ones((1, 16, 3, 8), dtype=torch.int32)
     runs = {  # name: (one run, windows)
         "verify_prep": (lambda: verify_prep_plain(x, y), 1),
         "inv_n": (lambda: S.inv_n(y), 1),

@@ -13,33 +13,39 @@ sources), unpacked outside git, for example
 Variants, each built with ``_build.NVCC_FLAGS`` (one nvcc process each,
 all at once), in the order of their steps:
 
-* K2 ``build_tables``: ``parent`` (DIR's source and header); ``z1``
-  (this tree's source, where every addition is ``pt_add_z1``, at the
-  parent's launch: 128 threads a block, no launch bounds); ``z1_64``
-  (this tree's launch) and ``z1_32``; launch bounds of (threads a
-  block, blocks an SM) ``b256x2`` and ``b128x4`` (128 registers a
-  thread) and ``b128x3`` (168);
-* K4 ``glv_scan2``: ``parent``; ``bounds`` (the parent's window loop,
-  which reads a window's points after its doublings, over this tree's
-  header at K3's launch: 256 threads, ``__launch_bounds__(256, 2)``);
-  ``prefetch`` (this tree's source: K3's cp.async slot through the scan
-  body K3 and K4 share, 256 threads); ``prefetch128`` (the same at 128
-  threads and 4 blocks an SM);
-* K3 ``glv_scan`` (the shared body at n_g = 1), K1 ``verify_prep``, K5
-  ``dual_mul_v2``, K6 ``dual_mul_planes``: ``parent`` and ``new`` (this
-  tree's source).
+* K6 ``dual_mul_planes``: ``parent`` (DIR's source and header);
+  ``bounds`` (the parent's source and window loop, which reads a
+  window's points after its doublings and inlines pt_add twice, at 256
+  threads a block under ``__launch_bounds__(256, 2)``); ``one_add``
+  (``bounds`` with the two additions through one loop, one copy of
+  pt_add in the code); ``prefetch`` (this tree's source: the 64-window
+  scan body K5 and K6 share, one copy of pt_add, a window's two points
+  copied by cp.async into a shared-memory slot before its doublings);
+* K5 ``dual_mul_v2``: ``parent``, ``bounds``, ``one_add`` and
+  ``prefetch`` as K6's, all four over the table as (16, 3, 8, B)
+  planes, the batch fastest (``prefetch`` fetches the digit's entry word
+  by word, 24 4-byte copies); ``rows`` (this tree's source: the table
+  signature-major, (B, 16, 3, 8), an entry by six 16-byte copies);
+* K1 ``verify_prep``, K2 ``build_tables``, K3 ``glv_scan``, K4
+  ``glv_scan2``: ``parent`` and ``new`` (this tree's source).
 
 Every variant's outputs must equal this tree's kernel's on the same
 random inputs at B = bucket (the script fails otherwise).  Then each is
 timed with CUDA events (20 calls after 2 warm-up calls) in the order of
 its steps and back again (a b c c b a), so a drift of the card's clock
-shows as a difference between a variant's two readings; K3's and K4's
-variants also with every digit and joint index one fixed value, so the
-difference is what their gathers cost.  Prints one line per reading and
-the ptxas report of every variant (with its blocks per SM where the
-library reports them), names the variant each kernel ships, and writes
-all of it, with the card's name and power limit, to FILE as JSON if
---out is given.  Needs a CUDA device and nvcc.
+shows as a difference between a variant's two readings; K3's, K4's and
+K5's variants also with every digit and joint index one fixed value, so
+the difference is what their gathers cost.  Last, K5's parent is built
+a second time (``parent2``, the same source and flags) and both builds
+are timed on the inputs above (A) and on a copy of them in new
+allocations (B), in the order parent/A, parent2/B, parent2/A, parent/B
+and back: a gap that follows the buffers and not the build is where the
+data lie, not the code.  Prints one line per reading and the ptxas
+report of every variant (with its blocks per SM where the library
+reports them, and its SASS instructions as ``cuobjdump -sass`` lists
+them), names the variant each kernel ships, and writes all of it, with
+the card's name and power limit, to FILE as JSON if --out is given.
+Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -59,63 +65,67 @@ from .crypto import hopper_secp as H
 
 REPS, WARM = 20, 2
 
-# The parent's K4 window loop over this tree's header, at K3's launch.
-K4_OLD_LOOP = r"""
-#include <cuda_runtime.h>
-#include "secp256k1.cuh"
-__device__ __forceinline__ void tab_load(pt &o, const uint32_t *tab,
-                                         long long stride, int half, int v) {
-    const long long plane = (long long)16 * 8 * stride;
-    const uint32_t *b = tab + (long long)((3 * half * 16 + v) * 8) * stride;
-    fe_load(o.x, b, stride);
-    fe_load(o.y, b + plane, stride);
-    fe_load(o.z, b + 2 * plane, stride);
+# K5's table as (16, 3, 8, B) planes, the batch fastest: the digit's
+# entry fetched word by word into the slot, as K6 fetches its Q row.
+K5_PLANES_TABLE = r"""
+struct dual_q_tplanes {
+    const int32_t *d2;
+    const uint32_t *qtab;
+};
+HD int q_sel(const dual_q_tplanes &f, int w, long long stride) {
+    return f.d2[w * stride] & 15;
 }
-__global__ void __launch_bounds__(256, 2) glv_scan2_kernel(
-        const int32_t *__restrict__ d2l, const int32_t *__restrict__ d2h,
-        const uint32_t *__restrict__ tab, const uint32_t *__restrict__ g1,
-        const uint32_t *__restrict__ g2, uint32_t *__restrict__ ox,
-        uint32_t *__restrict__ oy, uint32_t *__restrict__ oz, int B) {
-    int i = blockIdx.x * 256 + threadIdx.x;
-    if (i >= B) return;
-    const long long st = B;
-    pt acc, q;
-    pt_set_inf(acc);
-#pragma unroll 1
-    for (int w = 0; w < GLV_WINDOWS; w++) {
-#pragma unroll 1
-        for (int k = 0; k < 4; k++) pt_double(acc, acc);
-        tab_load(q, tab + i, st, 0, d2l[w * st + i] & 15);
-        pt_add(acc, acc, q);
-        tab_load(q, tab + i, st, 1, d2h[w * st + i] & 15);
-        pt_add(acc, acc, q);
-        plane_load(q, g1 + i, st, w);
-        pt_add(acc, acc, q);
-        plane_load(q, g2 + i, st, w);
-        pt_add(acc, acc, q);
-    }
-    fe_store(ox + i, B, acc.x);
-    fe_store(oy + i, B, acc.y);
-    fe_store(oz + i, B, acc.z);
+HD void q_fetch(uint32_t *slots, int t, int step, const dual_q_tplanes &f,
+                int j, long long stride) {
+    plane_fetch(slots + t, step, f.qtab, stride, j);
 }
-extern "C" int glv_scan2_launch(const void *d2l, const void *d2h,
-                                const void *tab, const void *g1,
-                                const void *g2, void *x, void *y, void *z,
-                                int B, void *stream) {
-    if (B <= 0) return 0;
-    glv_scan2_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        (const int32_t *)d2l, (const int32_t *)d2h, (const uint32_t *)tab,
-        (const uint32_t *)g1, (const uint32_t *)g2, (uint32_t *)x,
-        (uint32_t *)y, (uint32_t *)z, B);
-    return (int)cudaGetLastError();
+HD void q_point(pt &q, const uint32_t *slots, int t, int step,
+                const dual_q_tplanes &) {
+    slot_point(q, slots + t, step, 0);
 }
 """
 
-# K3 and K4 are also timed with fixed digits (their first n inputs).
-FIXED_INPUTS = {"glv_scan": 3, "glv_scan2": 2}
-# Timing orders beyond "every step, and back".
-ORDERS = {"glv_scan2": [["parent", "bounds", "prefetch"],
-                        ["prefetch", "prefetch128"]]}
+# The parent's 64-window loop with the window's two additions through
+# one loop over the two points, so pt_add is inlined once.  d2 = null
+# takes K6's Q planes row by row, else K5's table entry by digit.
+ONE_ADD = r"""
+__device__ __forceinline__ void one_add_scan(const int32_t *d2,
+                                             const uint32_t *qs,
+                                             const uint32_t *gs,
+                                             long long stride, pt &acc) {
+    pt q;
+    pt_set_inf(acc);
+#pragma unroll 1
+    for (int w = 0; w < DUAL_WINDOWS; w++) {
+#pragma unroll 1
+        for (int k = 0; k < 4; k++) pt_double(acc, acc);
+#pragma unroll 1
+        for (int e = 0; e < 2; e++) {
+            int j = e || !d2 ? w : d2[w * stride] & 15;
+            plane_load(q, e ? gs : qs, stride, j);
+            pt_add(acc, acc, q);
+        }
+    }
+}
+"""
+INCLUDE = '#include "secp256k1.cuh"\n'
+
+# K3, K4 and K5 are also timed with fixed digits (their first n inputs).
+FIXED_INPUTS = {"glv_scan": 3, "glv_scan2": 2, "dual_mul_v2": 1}
+# K5's variants that take the table signature-major, (B, 16, 3, 8).
+ROWS = {"dual_mul_v2": {"rows"}}
+# Two builds of one source, timed on two sets of buffers (the placement
+# check) and not among the steps.
+PLACEMENT = {"dual_mul_v2": ("parent", "parent2")}
+
+
+def edit(src: str, *pairs: tuple[str, str]) -> str:
+    """`src` with each (old, new) pair replaced; each old must occur
+    once."""
+    for old, new in pairs:
+        assert src.count(old) == 1, f"not once in the source: {old!r}"
+        src = src.replace(old, new)
+    return src
 
 
 def variants(parent: str) -> dict[str, dict[str, tuple]]:
@@ -123,47 +133,54 @@ def variants(parent: str) -> dict[str, dict[str, tuple]]:
     order of the steps."""
     here = _build.CSRC
 
-    def own(k):
-        return os.path.join(here, _build.SOURCES[k])
+    def read(d, k):
+        with open(os.path.join(d, _build.SOURCES[k])) as f:
+            return f.read()
 
-    def subst(k, bounds=None, **defines):
-        """This tree's source of k with each ``#define NAME ...`` line
-        of `defines` set to its value and, if `bounds` is given, its
-        kernel under ``__launch_bounds__(*bounds)`` (text, since nvcc's
-        -D would split the value at its comma)."""
-        with open(own(k)) as f:
-            src = f.read()
-        for name, val in defines.items():
-            src, n = re.subn(rf"#define {name}\b.*", f"#define {name} {val}",
-                             src)
-            assert n == 1, f"{k}: no #define {name}"
-        if bounds:
-            head = f"__global__ void\n{k}_kernel("
-            assert head in src, f"{k}: no kernel head to bound"
-            src = src.replace(head, "__global__ void __launch_bounds__"
-                              f"({bounds[0]}, {bounds[1]})\n{k}_kernel(")
-        return src
+    def bounds(k):
+        """The parent's source of k at 256 threads a block under
+        ``__launch_bounds__(256, 2)`` (text, since nvcc's -D would
+        split the value at its comma)."""
+        return edit(read(parent, k),
+                    (f"__global__ void {k}_kernel(",
+                     f"__global__ void __launch_bounds__(256, 2) "
+                     f"{k}_kernel("),
+                    ("const int threads = 128;", "const int threads = 256;"))
 
     def old(k):
-        return os.path.join(parent, _build.SOURCES[k])
+        return os.path.join(parent, _build.SOURCES[k]), parent
 
-    out = {
-        "build_tables": {
-            "parent": (old("build_tables"), parent),
-            **{f"z1{s}": (subst("build_tables", K2_THREADS=t), here)
-               for s, t in (("", 128), ("_64", 64), ("_32", 32))},
-            **{f"b{t}x{n}": (subst("build_tables", (t, n), K2_THREADS=t),
-                             here) for t, n in ((256, 2), (128, 4), (128, 3))},
-        },
-        "glv_scan2": {
-            "parent": (old("glv_scan2"), parent),
-            "bounds": (K4_OLD_LOOP, here),
-            "prefetch": (own("glv_scan2"), here),
-            "prefetch128": (subst("glv_scan2", GLV_THREADS=128), here),
-        },
+    def own(k):
+        return os.path.join(here, _build.SOURCES[k]), here
+
+    one_add = {
+        "dual_mul_planes": edit(
+            bounds("dual_mul_planes"), (INCLUDE, INCLUDE + ONE_ADD),
+            ("dual_mul_planes_one(qs + i, gs + i, B, acc);",
+             "one_add_scan(nullptr, qs + i, gs + i, B, acc);")),
+        "dual_mul_v2": edit(
+            bounds("dual_mul_v2"), (INCLUDE, INCLUDE + ONE_ADD),
+            ("dual_mul_v2_one(d2 + i, B, qtab + i, gs + i, acc);",
+             "one_add_scan(d2 + i, qtab + i, gs + i, B, acc);")),
     }
-    for k in ("glv_scan", "verify_prep", "dual_mul_v2", "dual_mul_planes"):
-        out[k] = {"parent": (old(k), parent), "new": (own(k), here)}
+    k5_planes = edit(
+        read(here, "dual_mul_v2"), (INCLUDE, INCLUDE + K5_PLANES_TABLE),
+        ("const dual_q_table q = {d2 + i, qtab + (long long)i * "
+         "DUAL_QTAB_WORDS};", "const dual_q_tplanes q = {d2 + i, qtab + i};"))
+    out = {
+        "dual_mul_planes": {"parent": old("dual_mul_planes"),
+                            "bounds": (bounds("dual_mul_planes"), parent),
+                            "one_add": (one_add["dual_mul_planes"], parent),
+                            "prefetch": own("dual_mul_planes")},
+        "dual_mul_v2": {"parent": old("dual_mul_v2"),
+                        "bounds": (bounds("dual_mul_v2"), parent),
+                        "one_add": (one_add["dual_mul_v2"], parent),
+                        "prefetch": (k5_planes, here),
+                        "rows": own("dual_mul_v2"),
+                        "parent2": (read(parent, "dual_mul_v2"), parent)},
+    }
+    for k in ("verify_prep", "build_tables", "glv_scan", "glv_scan2"):
+        out[k] = {"parent": old(k), "new": own(k)}
     return out
 
 
@@ -181,6 +198,18 @@ def shipped(table) -> dict[str, str]:
             if inc == _build.CSRC and text == mine:
                 out[k] = v
     return out
+
+
+def sass_instructions(lib: str) -> int | None:
+    """The SASS instructions of a kernel library, as ``cuobjdump -sass``
+    lists them (one line with an address comment each); None where the
+    toolkit has no cuobjdump."""
+    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    return len(re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+\S", out, re.M))
 
 
 def build(table, outdir: str) -> dict[str, dict[str, tuple]]:
@@ -209,6 +238,7 @@ def build(table, outdir: str) -> dict[str, dict[str, tuple]]:
             continue
         report = " | ".join(ln.strip() for ln in out.splitlines()
                             if "registers" in ln or "spill" in ln)
+        report += f" | {sass_instructions(lib)} SASS instructions"
         built.setdefault(k, {})[v] = (ctypes.CDLL(lib), report)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -278,6 +308,31 @@ def inputs(B: int, dev) -> dict[str, tuple[list, list]]:
     }
 
 
+def operands(k: str, v: str, ins: list) -> list:
+    """The inputs of variant v of kernel k: K5's ``rows`` takes the
+    table, (16, 3, 8, B) in `ins`, as (B, 16, 3, 8)."""
+    if v in ROWS.get(k, ()):
+        return [ins[0], ins[1].permute(3, 0, 1, 2).contiguous(), *ins[2:]]
+    return ins
+
+
+def placement(k: str, vs: dict, ins: list, outs: list, B: int) -> dict:
+    """Two builds of one source of k, each timed on `ins` and `outs` (A)
+    and on copies of them in new allocations (B), in turns and back."""
+    a, b = PLACEMENT[k]
+    bufs = {"A": ins + outs,
+            "B": [t.clone() for t in ins] + [torch.empty_like(o)
+                                             for o in outs]}
+    order = [(a, "A"), (b, "B"), (b, "A"), (a, "B")]
+    got: dict[str, list] = {f"{v}/{side}": [] for v, side in order}
+    for v, side in order + order[::-1]:
+        ms = time_ms(launcher(vs[v][0], k, bufs[side], B))
+        got[f"{v}/{side}"].append(ms)
+        print(f"time {k}/{v} on buffers {side}: {ms:.4f} ms/call",
+              flush=True)
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
@@ -298,7 +353,8 @@ def main(argv=None) -> int:
     table = variants(os.path.abspath(args.parent))
     built = build(table, os.path.join(_build.BUILD_DIR, "ablation"))
     record = {"card": card, "B": B, "reps": REPS, "shipped": shipped(table),
-              "ptxas": {}, "ms": {}, "fixed_digits_ms": {}}
+              "ptxas": {}, "ms": {}, "fixed_digits_ms": {},
+              "placement_ms": {}}
     print(f"shipped: {json.dumps(record['shipped'])}", flush=True)
     for k, vs in built.items():
         for v, (lib, rep) in vs.items():
@@ -311,9 +367,10 @@ def main(argv=None) -> int:
     for k, vs in built.items():
         ins, outs = data[k]
         want = [torch.empty_like(o) for o in outs]
-        launcher(_build.lib(k), k, ins + want, B)()
-        runs = {v: launcher(lib, k, ins + outs, B) for v, (lib, _) in
-                vs.items()}
+        mine = operands(k, record["shipped"][k], ins)
+        launcher(_build.lib(k), k, mine + want, B)()
+        runs = {v: launcher(lib, k, operands(k, v, ins) + outs, B)
+                for v, (lib, _) in vs.items()}
         for v, run in runs.items():
             for o in outs:
                 o.fill_(-1)
@@ -321,30 +378,33 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             assert all(torch.equal(o, w) for o, w in zip(outs, want)), \
                 f"{k}/{v} disagrees with this tree's kernel"
-        steps = list(runs)
+        steps = [v for v in runs if v not in PLACEMENT.get(k, ())[1:]]
         record["ms"][k] = {v: [] for v in steps}
-        for order in ORDERS.get(k, [steps]):
-            for v in order + order[::-1]:
-                ms = time_ms(runs[v])
-                record["ms"][k][v].append(ms)
-                print(f"time {k}/{v}: {ms:.4f} ms/call at B={B}", flush=True)
+        for v in steps + steps[::-1]:
+            ms = time_ms(runs[v])
+            record["ms"][k][v].append(ms)
+            print(f"time {k}/{v}: {ms:.4f} ms/call at B={B}", flush=True)
         if k in FIXED_INPUTS:
             n = FIXED_INPUTS[k]
             fixed = [torch.full_like(t, 5) for t in ins[:n]]
-            frun = {v: launcher(lib, k, fixed + ins[n:] + outs, B)
-                    for v, (lib, _) in vs.items()}
+            frun = {v: launcher(vs[v][0], k,
+                                operands(k, v, fixed + ins[n:]) + outs, B)
+                    for v in steps}
             record["fixed_digits_ms"][k] = {v: [] for v in steps}
             for v in steps + steps[::-1]:
                 ms = time_ms(frun[v])
                 record["fixed_digits_ms"][k][v].append(ms)
                 print(f"time {k}/{v} fixed digits: {ms:.4f} ms/call",
                       flush=True)
+        if k in PLACEMENT:
+            record["placement_ms"][k] = placement(k, vs, ins, outs, B)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
     print(json.dumps({"ablation": record["ms"],
-                      "fixed_digits_ms": record["fixed_digits_ms"]}))
+                      "fixed_digits_ms": record["fixed_digits_ms"],
+                      "placement_ms": record["placement_ms"]}))
     return 0
 
 

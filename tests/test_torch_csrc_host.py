@@ -4,7 +4,7 @@ Every function of lightning_tpu_torch/crypto/csrc/secp256k1.cuh is
 __host__ __device__, so the field operations, the batch inversion mod n
 and the per-signature bodies of the six kernels (verify_prep_sqrt_one,
 build_tables_one with its pt_add_z1, the scan body glv_scan_one<n_g> of
-K3 (n_g = 1) and K4 (n_g = 2), dual_mul_v2_one, dual_mul_planes_one)
+K3 (n_g = 1) and K4 (n_g = 2), the scan body dual_scan_one of K5 and K6)
 build with the host C++ compiler too.  Here they run
 on the CPU against the exact-int oracle and the port's plain versions,
 exactly after normalization.
@@ -100,16 +100,22 @@ void c_glv_scan2(const int32_t *dl, const int32_t *dh, const uint32_t *tab,
     glv_scan_one<2>(dl, dh, 1, tab, fx, slot, step, acc);
     put(acc, out);
 }
+// K5 and K6 through their shared scan body, as thread t = step - 1 of a
+// block of `step` threads (its chunks and words lie between the others').
 void c_dual_mul_v2(const int32_t *d2, const uint32_t *qtab,
-                   const uint32_t *gs, uint32_t *out) {
+                   const uint32_t *gs, uint32_t *out, int step) {
     pt acc;
-    dual_mul_v2_one(d2, 1, qtab, gs, acc);
+    uint32_t slots[DUAL_SLOT_WORDS * SLOT_STEP_MAX];
+    const dual_q_table q = {d2, qtab};
+    dual_scan_one(q, gs, 1, slots, step - 1, step, acc);
     put(acc, out);
 }
 void c_dual_mul_planes(const uint32_t *qs, const uint32_t *gs,
-                       uint32_t *out) {
+                       uint32_t *out, int step) {
     pt acc;
-    dual_mul_planes_one(qs, gs, 1, acc);
+    uint32_t slots[DUAL_SLOT_WORDS * SLOT_STEP_MAX];
+    const dual_q_planes q = {qs};
+    dual_scan_one(q, gs, 1, slots, step - 1, step, acc);
     put(acc, out);
 }
 }
@@ -218,17 +224,24 @@ def _same_point(out, point, i):
         assert _int(out[8 * c:8 * c + 8]) == F.limbs_to_int(coord[i]) % P
 
 
-# The scan body's slot words lie `step` apart (threads a block on the
-# card); step 3 also checks that no two words of a slot collide.
-@pytest.mark.parametrize("kernel,step", [
-    pytest.param("glv_scan", 1, id="glv_scan"),
-    pytest.param("glv_scan", 3, id="glv_scan-step3"),
-    pytest.param("glv_scan2", 1, id="glv_scan2"),
-    pytest.param("glv_scan2", 3, id="glv_scan2-step3"),
-    pytest.param("dual_mul_v2", 0, id="dual_mul_v2"),
-    pytest.param("dual_mul_planes", 0, id="dual_mul_planes")])
-def test_window_scan_bodies_match_plain(lib, kernel, step):
-    """K3 and K4 (the scan body at n_g = 1 and 2), K5 and K6 on the
+# The scan bodies' slot words lie `step` apart (threads a block on the
+# card); step 3 also checks that no two words of a slot collide.  K5 runs
+# once more with every digit 0 (the table's infinity entry in every
+# window) and with every digit 15.
+@pytest.mark.parametrize("kernel,step,digit", [
+    pytest.param("glv_scan", 1, None, id="glv_scan"),
+    pytest.param("glv_scan", 3, None, id="glv_scan-step3"),
+    pytest.param("glv_scan2", 1, None, id="glv_scan2"),
+    pytest.param("glv_scan2", 3, None, id="glv_scan2-step3"),
+    pytest.param("dual_mul_v2", 1, None, id="dual_mul_v2"),
+    pytest.param("dual_mul_v2", 3, None, id="dual_mul_v2-step3"),
+    pytest.param("dual_mul_v2", 3, 0, id="dual_mul_v2-digit0"),
+    pytest.param("dual_mul_v2", 3, 15, id="dual_mul_v2-digit15"),
+    pytest.param("dual_mul_planes", 1, None, id="dual_mul_planes"),
+    pytest.param("dual_mul_planes", 3, None, id="dual_mul_planes-step3")])
+def test_window_scan_bodies_match_plain(lib, kernel, step, digit):
+    """K3 and K4 (the GLV scan body at n_g = 1 and 2), K5 and K6 (the
+    64-window scan body over a key's table and over Q planes) on the
     operands their engines give them."""
     n = 2
     u1, u2, qx, qy = _scan_inputs(33, n)
@@ -249,20 +262,22 @@ def test_window_scan_bodies_match_plain(lib, kernel, step):
             want = H.glv_scan2_plain(d2l, d2h, lo, hi, *fixed)
     else:
         d1, d2 = (E._msb_planes(u, 64) for u in (u1, u2))
+        if digit is not None:
+            d2 = torch.full_like(d2, digit)
         words = H.to_words(S._build_window(qx, qy))
         gs = E._select_shared_planes(E.shared_words("g", "cpu"), d1)
         if kernel == "dual_mul_v2":
-            ops = (d2, words.permute(1, 2, 3, 0), gs)
+            want = H.dual_mul_v2_plain(d2, words, gs)
+            ops = (d2, words.movedim(0, -1), gs)   # signature i: words[i]
         else:
             ops = (E._select_planes(words, d2), gs)
-        want = getattr(H, kernel + "_plain")(*ops)
-    extra = (ctypes.c_int(step),) if step else ()
+            want = H.dual_mul_planes_plain(*ops)
     for i in range(n):
         out = np.zeros(24, np.uint32)
         bufs = [_col(t, i) for t in ops]
         getattr(lib, "c_" + kernel)(*(p for _, p in bufs), *shared,
                                     out.ctypes.data_as(ctypes.c_void_p),
-                                    *extra)
+                                    ctypes.c_int(step))
         _same_point(out, want, i)
 
 

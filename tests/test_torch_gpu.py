@@ -219,15 +219,57 @@ def test_glv_scan2_kernel_full_bucket_ragged(cuda):
                                        g1, g2))
 
 
+def _qtab(gen, n, dev):
+    """A random per-key table in K5's layout, (n, 16, 3, 8) int32 words
+    of canonical field elements."""
+    return _words(gen, (16, 3, 8, n), dev).permute(3, 0, 1, 2).contiguous()
+
+
 def test_dual_mul_v2_kernel_matches_plain(cuda):
     gen = np.random.default_rng(46)
     d2 = torch.as_tensor(gen.integers(0, 16, (64, B)), device=cuda)
-    qtab, gs = _words(gen, (16, 3, 8, B), cuda), _words(gen, (64, 3, 8, B),
-                                                       cuda)
+    qtab, gs = _qtab(gen, B, cuda), _words(gen, (64, 3, 8, B), cuda)
     before = H.dual_mul_v2.launches
     got = H.dual_mul_v2(d2, qtab, gs)
     assert H.dual_mul_v2.launches == before + 1
     _same_point(got, H.dual_mul_v2_plain(d2, qtab, gs))
+
+
+def test_dual_mul_v2_kernel_full_bucket_ragged(cuda):
+    """K5 at the bucket size plus a ragged 37: the 64-window scan body
+    at 256 threads a block and 2 blocks an SM, its 48 KB shared-memory
+    slots (the table entry in 16-byte chunks, the G row word by word),
+    over more blocks than one wave holds, the last block partly empty."""
+    gen = np.random.default_rng(53)
+    d2 = torch.as_tensor(gen.integers(0, 16, (64, FULL)), device=cuda)
+    qtab, gs = _qtab(gen, FULL, cuda), _words(gen, (64, 3, 8, FULL), cuda)
+    _same_point(H.dual_mul_v2(d2, qtab, gs),
+                H.dual_mul_v2_plain(d2, qtab, gs))
+
+
+@pytest.mark.parametrize("digit", [0, 15])
+def test_dual_mul_v2_kernel_fixed_digit(cuda, digit):
+    """K5 with every digit 0 (the table's infinity entry in every window)
+    and with every digit 15 (the last entry of every key's table)."""
+    gen = np.random.default_rng(54 + digit)
+    d2 = torch.full((64, B), digit, dtype=torch.int64, device=cuda)
+    qtab, gs = _qtab(gen, B, cuda), _words(gen, (64, 3, 8, B), cuda)
+    _same_point(H.dual_mul_v2(d2, qtab, gs),
+                H.dual_mul_v2_plain(d2, qtab, gs))
+
+
+def test_dual_mul_v2_refuses_misaligned_table(cuda):
+    """K5 copies table entries in 16-byte pieces: a table that does not
+    start on 16 bytes is refused, and nothing is launched."""
+    gen = np.random.default_rng(56)
+    n = 64
+    d2 = torch.as_tensor(gen.integers(0, 16, (64, n)), device=cuda)
+    flat = torch.zeros(n * 16 * 3 * 8 + 1, dtype=torch.int32, device=cuda)
+    qtab = flat[1:].view(n, 16, 3, 8)
+    before = H.dual_mul_v2.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        H.dual_mul_v2(d2, qtab, _words(gen, (64, 3, 8, n), cuda))
+    assert H.dual_mul_v2.launches == before
 
 
 def test_dual_mul_planes_kernel_matches_plain(cuda):
@@ -237,6 +279,16 @@ def test_dual_mul_planes_kernel_matches_plain(cuda):
     got = H.dual_mul_planes(qs, gs)
     assert H.dual_mul_planes.launches == before + 1
     _same_point(got, H.dual_mul_planes_plain(qs, gs))
+
+
+def test_dual_mul_planes_kernel_full_bucket_ragged(cuda):
+    """K6 at the bucket size plus a ragged 37: the 64-window scan body
+    at 256 threads a block and 2 blocks an SM, its 48 KB shared-memory
+    slots (both plane rows word by word), over more blocks than one wave
+    holds, the last block partly empty."""
+    gen = np.random.default_rng(55)
+    qs, gs = (_words(gen, (64, 3, 8, FULL), cuda) for _ in range(2))
+    _same_point(H.dual_mul_planes(qs, gs), H.dual_mul_planes_plain(qs, gs))
 
 
 # The kernels each engine launches once a bucket on the card (K1 is the
