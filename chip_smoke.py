@@ -6,9 +6,10 @@
 
 Phases, each fatal on failure:
 
-1. device and build: the card's name and power limit; the six CUDA
-   kernels built for sm_90a with nvcc, all at once, with each one's
-   ptxas report, and the blocks an SM holds of K2-K6;
+1. device and build: the card's name and power limit; the eight CUDA
+   kernels (the verify path's K1-K6, the sign path's S1 and S2) built for
+   sm_90a with nvcc, all at once, with each one's ptxas report, and the
+   blocks an SM holds of K2-K6, S1 and S2;
 2. each kernel against its plain PyTorch version on the card, at the
    bucket size, a ragged batch (bucket + 37) and edge inputs, compared
    exactly after normalization mod p or n: K5 also with every digit 0
@@ -20,7 +21,12 @@ Phases, each fatal on failure:
    n - 1 on both sides, and u1*G = -u2*Q) on the card, in the plain path
    and in the exact-int oracle; a verify batch of edge signatures (s = 0,
    off-curve x, u = 0, u = n - 1, r < p - n, high S, bad tag) under every
-   kernel engine, on the card, in the plain path and in the oracle;
+   kernel engine, on the card, in the plain path and in the oracle; S1
+   and S2 (C = 1 and C = 4) at the bucket size and bucket + 37, with edge
+   rows (k = 0, 1, n - 1, n, digits of 0, z = 2^256 - 1, z >= n, a row
+   with no low-R nonce among its four RFC6979 candidates), and S2 on a
+   1,024-row sample against the exact-int four-candidate rule, which must
+   hold rows with no low-R candidate;
 3. the main path: a synthetic gossip_store (612,500 signatures by
    default, with seeded corrupted signatures, an off-curve key, a bad key
    tag and oversized rows) through load_store -> check_crcs ->
@@ -36,12 +42,24 @@ Phases, each fatal on failure:
    its plain version's ms and its bound; K3, K4 and K5 once more with
    every digit (and K3's joint index) one fixed value (coalesced or
    broadcast reads: the gap is what their gathers cost); K1's bound with
-   its batch
-   inversion beside the bound of a Fermat chain per signature.
+   its batch inversion beside the bound of a Fermat chain per signature;
+   S1 and S2 (C = 4), their bounds counted from what the data needs (the
+   nonzero digits, the candidates up to the first low R);
+5. the sign path at full width, with the launch counters set to 0 just
+   before and read just after: one remote commitment with BOLT #2's 483
+   HTLCs (anchors on) built by channel/commitment.py, signed by
+   Hsm.sign_htlc_batch (S2) and checked by Hsm.check_sigs_batch (K1 + K2
+   + K3), every signature the exact-int rule's; the bulk fan-out of 136
+   such commitments, each with its own HTLC key, 65,688 sighashes in one
+   ecdsa_sign_batch call (host nonce and device seconds apart), all
+   verifying, a 1,024-row sample the exact-int rule's; derive_pubkeys of
+   a bucket of keys (S1), a 1,024-row sample against ref.pubkey_create;
+   schnorr_verify_batch (K2 + K3) on 1,024 signatures and 64 flipped
+   ones, exact.
 
-Prints one {"kernels": [...]} line (each kernel's launches counted on
-the replay of the first engine that runs it, named as "path"), the
-nvidia-smi name and power limit,
+Prints one {"kernels": [...]} line (each verify kernel's launches counted
+on the replay of the first engine that runs it, named as "path"; S1's and
+S2's on phase 5's sign path), the nvidia-smi name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when there is no CUDA device or no port package beside it.
 """
@@ -72,9 +90,15 @@ REPLACES = {
     "glv_scan2": "lightning_tpu/crypto/pallas_secp.py:627",
     "dual_mul_v2": "lightning_tpu/crypto/pallas_secp.py:462",
     "dual_mul_planes": "lightning_tpu/crypto/pallas_secp.py:807",
+    # the sign path's kernels replace XLA programs, not pallas_calls
+    "fixed_base": "lightning_tpu/crypto/secp256k1.py:451",
+    "ecdsa_sign": "lightning_tpu/crypto/secp256k1.py:405",
 }
 SOURCES = {k: f"lightning_tpu_torch/crypto/csrc/{k}.cu" for k in REPLACES}
-WRAPPER = {"verify_prep": "verify_prep_core"}   # else the kernel's name
+# the wrapper of each kernel, where its name is not the kernel's
+WRAPPER = {"verify_prep": "verify_prep_core",
+           "fixed_base": "fixed_base_affine"}
+MAX_HTLCS = 483         # BOLT #2 max_accepted_htlcs
 
 # The kernels (by wrapper) each kernel engine launches once a bucket; the
 # "+pp" prep is K1.  pallas_fbj+pp is the main path.
@@ -329,6 +353,229 @@ def verify_edges(E, S, F, ref, dev, torch, engine):
     return run(dev), run("cpu"), S.host_verify_batch(zb, sig, pub)
 
 
+def s1_inputs(gen, B, dev, F, ref):
+    """S1's scalars as (8, B) words: k = 0, 1, 2, n - 1, n, 2^256 - 1,
+    2^128 and 2^252 first (infinity; digits of 0), then random."""
+    ks = [int.from_bytes(r.tobytes(), "big")
+          for r in gen.integers(0, 256, (B, 32), dtype=np.uint8)]
+    ks[:8] = [0, 1, 2, ref.N - 1, ref.N, 2**256 - 1, 2**128, 2**252]
+    return F.words_from_be_bytes(F.ints_to_be_bytes(ks), dev)
+
+
+def s2_inputs(gen, B, C, dev, F, E, ref, torch):
+    """S2's z, d (8, B) and ks (C, 8, B) words: row 0 the hash
+    sha256(b"h14") with the key from b"d14" and its four RFC6979
+    candidates (none gives a low R), rows 1-2 z = 2^256 - 1 and z = n + 5,
+    row 3 the candidates 1, n - 1, 2^128, 2^252; the rest random (about 1
+    row in 16 has no low-R candidate among four)."""
+    import hashlib
+
+    def rnd(shape, m):
+        raw = gen.integers(0, 256, (*shape, 32), dtype=np.uint8)
+        return [int.from_bytes(r.tobytes(), "big") % m
+                for r in raw.reshape(-1, 32)]
+
+    zs = rnd((B,), 2**256)
+    ds = [v + 1 for v in rnd((B,), ref.N - 1)]
+    ks = [v + 1 for v in rnd((B, 4), ref.N - 1)]
+    ks = [ks[4 * i:4 * i + 4] for i in range(B)]
+    h14 = hashlib.sha256(b"h14").digest()
+    zs[0] = int.from_bytes(h14, "big")
+    ds[0] = int.from_bytes(hashlib.sha256(b"d14").digest(), "big") \
+        % (ref.N - 1) + 1
+    ks[0] = E.rfc6979_candidates(h14, ds[0])
+    zs[1], zs[2] = 2**256 - 1, ref.N + 5
+    ks[3] = [1, ref.N - 1, 2**128, 2**252]
+
+    def words(vals):
+        return F.words_from_be_bytes(F.ints_to_be_bytes(vals), dev)
+
+    return (words(zs), words(ds),
+            torch.stack([words([k[c] for k in ks]) for c in range(C)]))
+
+
+def compare_s1(H, F, k8):
+    got, want = H.fixed_base_affine(k8), H.fixed_base_affine_plain(k8)
+    return point_mismatches(F, [F.from_u32x8(g) for g in got],
+                            [F.from_u32x8(w) for w in want])
+
+
+def compare_s2(H, F, z8, d8, ks8):
+    """S2 against its plain version: rows where r, s, ok or grind
+    differ, and the max |limb difference| of r and s."""
+    got, want = H.ecdsa_sign(z8, d8, ks8), H.ecdsa_sign_plain(z8, d8, ks8)
+    rows = (got[2] != want[2]) | (got[3] != want[3])
+    err = 0
+    for g, w in zip(got[:2], want[:2]):
+        a, b = F.from_u32x8(g), F.from_u32x8(w)
+        rows |= (a != b).any(dim=-1)
+        err = max(err, int((a - b).abs().max()))
+    return int(rows.sum()), err, got
+
+
+def s2_rule_sample(E, F, gen, z8, d8, ks8, got, n):
+    """S2's outputs on n sampled rows (the 4 edge rows and random ones)
+    against the exact-int four-candidate rule; returns (rows off the
+    rule, rows of the sample with no low-R candidate)."""
+    B = z8.shape[-1]
+    rows = np.concatenate([np.arange(4), np.sort(gen.choice(
+        np.arange(4, B), min(n, B) - 4, replace=False))])
+
+    def ints(w):
+        return [int.from_bytes(b.tobytes(), "big")
+                for b in F.words_to_be_bytes(w[:, rows])]
+
+    zs, ds, rs, ss = (ints(w) for w in (z8, d8, got[0], got[1]))
+    ks = [ints(kc) for kc in ks8]
+    ok, grind = got[2].cpu().numpy()[rows], got[3].cpu().numpy()[rows]
+    off = 0
+    for i in range(len(rows)):
+        want = E.sign_with_candidates(zs[i], ds[i], [k[i] for k in ks])
+        off += (rs[i], ss[i], bool(ok[i]), bool(grind[i])) != want
+    return off, int((~grind).sum())
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the sign path
+
+
+def remote_commitment(C, hsmd, ref, us, client, them, their_client,
+                      number: int, n_htlcs: int):
+    """The peer's commitment `number` with n_htlcs HTLCs (half offered,
+    anchors on), built as our node builds it to sign the HTLC
+    transactions: (sighashes (n, 32) uint8, our HTLC key, our HTLC
+    pubkey)."""
+    import hashlib
+
+    point = them.per_commitment_point(their_client, number)
+    theirs = them.channel_basepoints(their_client)
+    ours = us.channel_basepoints(client)
+    keys = C.CommitmentKeys.derive(theirs, ours, point)
+    params = C.CommitmentParams(
+        funding_txid=hashlib.sha256(b"funding").digest(),
+        funding_output_index=0, funding_sat=16_777_215, opener=C.Side.LOCAL,
+        opener_payment_basepoint=keys.remote_pubkey,
+        accepter_payment_basepoint=ref.pubkey_serialize(theirs.payment),
+        to_self_delay=144, dust_limit_sat=546, feerate_per_kw=253,
+        anchors=True,
+        local_funding_pubkey=ref.pubkey_serialize(theirs.funding_pubkey),
+        remote_funding_pubkey=ref.pubkey_serialize(ours.funding_pubkey))
+    htlcs = [C.Htlc(offered=i % 2 == 0, amount_msat=(20_000 + 37 * i) * 1000,
+                    payment_hash=hashlib.sha256(
+                        b"%d preimage %d" % (number, i)).digest(),
+                    cltv_expiry=800_000 + i, id=i) for i in range(n_htlcs)]
+    tx, hmap = C.build_commitment_tx(params, keys, number, 6_000_000_000,
+                                     500_000_000, htlcs,
+                                     holder_is_opener=False)
+    sighashes = [h for _, h in C.htlc_sighashes(
+        tx, hmap, keys, params.to_self_delay, params.feerate_per_kw, True)]
+    assert len(sighashes) == n_htlcs, "an HTLC was trimmed"
+    hashes = np.frombuffer(bytearray(b"".join(sighashes)), np.uint8)
+    return hashes.reshape(-1, 32), us.htlc_privkey(client, point), \
+        keys.remote_htlcpubkey
+
+
+def sign_path(args, gen, dev, card, torch, F, E, H, ref):
+    """Phase 5; returns the launch counts of the sign path's run."""
+    from lightning_tpu_torch.channel import commitment as C
+    from lightning_tpu_torch.daemon import hsmd
+
+    us, them = hsmd.Hsm(b"\x11" * 32, dev), hsmd.Hsm(b"\x22" * 32, dev)
+    peer = b"\x03" + b"\x44" * 32
+    client = us.client(hsmd.CAP_MASTER, peer, dbid=1)
+    their_client = them.client(hsmd.CAP_MASTER, peer, dbid=1)
+    n_sample = min(1024, args.htlcs * args.commitments)
+    t0 = time.perf_counter()
+    commits = [remote_commitment(C, hsmd, ref, us, client, them,
+                                 their_client, n, args.htlcs)
+               for n in range(args.commitments)]
+    log(f"sign path: {args.commitments} remote commitments of "
+        f"{args.htlcs} HTLCs built in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    H.reset_launches()
+    # 5.1: one commitment through hsmd
+    hashes, priv, pub = commits[0]
+    point = them.per_commitment_point(their_client, 0)
+    t0 = time.perf_counter()
+    sigs = us.sign_htlc_batch(client, [bytes(h) for h in hashes], point)
+    t_sign = time.perf_counter() - t0
+    pubs = np.tile(np.frombuffer(pub, np.uint8), (len(hashes), 1))
+    ok = us.check_sigs_batch(hashes, sigs, pubs)
+    rule = E.host_sign_grind_batch(hashes, [priv] * len(hashes))
+    same = int((sigs == rule).all(axis=1).sum())
+    log(f"commitment: {len(hashes)} HTLC signatures by sign_htlc_batch in "
+        f"{t_sign:.3f} s, check_sigs_batch {int(ok.sum())}/{len(ok)} true, "
+        f"{same}/{len(hashes)} equal to the exact-int rule")
+    assert ok.all() and same == len(hashes), "commitment fan-out"
+
+    # 5.2: the bulk fan-out, one ecdsa_sign_batch call
+    hashes = np.concatenate([c[0] for c in commits])
+    keys = [c[1] for c in commits for _ in range(len(c[0]))]
+    pubs = np.stack([np.frombuffer(c[2], np.uint8) for c in commits
+                     for _ in range(len(c[0]))])
+    sec: dict = {}
+    sigs = E.ecdsa_sign_batch(hashes, keys, bucket=args.bucket, device=dev,
+                              seconds=sec)
+    ok = E.ecdsa_verify_batch(hashes, sigs, pubs, bucket=args.bucket,
+                              device=dev)
+    rows = np.sort(gen.choice(len(hashes), n_sample, replace=False))
+    rule = E.host_sign_grind_batch(hashes[rows], [keys[i] for i in rows])
+    same = int((sigs[rows] == rule).all(axis=1).sum())
+    total = sec["nonces"] + sec["device"]
+    log(f"bulk fan-out: {len(hashes)} sighashes ({args.commitments} x "
+        f"{args.htlcs}) in one ecdsa_sign_batch: host nonces "
+        f"{sec['nonces']:.3f} s, device {sec['device']:.3f} s, "
+        f"{len(hashes) / total:.0f} sig/s ({len(hashes) / sec['device']:.0f}"
+        f" sig/s on the device part); verified {int(ok.sum())}/{len(ok)}; "
+        f"{same}/{n_sample} of a sample equal to the exact-int rule; on "
+        f"{card}")
+    assert ok.all() and same == n_sample, "bulk fan-out"
+
+    # 5.3: public keys
+    seckeys = [int.from_bytes(r.tobytes(), "big") % (ref.N - 1) + 1
+               for r in gen.integers(0, 256, (args.bucket, 32), np.uint8)]
+    t0 = time.perf_counter()
+    pk = E.derive_pubkeys(F.from_int_array(seckeys).numpy(), args.bucket,
+                          device=dev)
+    t_derive = time.perf_counter() - t0
+    rows = gen.choice(len(seckeys), min(1024, len(seckeys)), replace=False)
+    same = sum(bytes(pk[i]) == ref.pubkey_serialize(
+        ref.pubkey_create(seckeys[i])) for i in rows)
+    log(f"derive_pubkeys: {len(seckeys)} keys in {t_derive:.3f} s, "
+        f"{same}/{len(rows)} of a sample equal to ref.pubkey_create")
+    assert same == len(rows), "derive_pubkeys"
+
+    # 5.4: BIP340
+    n_s = min(1024, args.bucket)
+    msgs = [gen.bytes(32) for _ in range(n_s)]
+    sigs = [ref.schnorr_sign(m, k) for m, k in zip(msgs, seckeys)]
+    xonly = [bytes(p[1:]) for p in pk[:n_s]]
+    flip = gen.choice(n_s, 64, replace=False)
+    bad = [bytearray(sigs[i]) for i in flip]
+    for j, b in enumerate(bad):
+        b[j % 64] ^= 1 << (j % 8)
+    M, SG, PK = (np.stack([np.frombuffer(bytes(x), np.uint8) for x in xs])
+                 for xs in (msgs + [msgs[i] for i in flip],
+                            sigs + bad, xonly + [xonly[i] for i in flip]))
+    got = E.schnorr_verify_batch(M, SG, PK, bucket=args.bucket, device=dev)
+    want = np.arange(len(got)) < n_s
+    log(f"schnorr_verify_batch: {int(got[:n_s].sum())}/{n_s} valid true, "
+        f"{int(got[n_s:].sum())}/64 flipped true")
+    assert np.array_equal(got, want), "schnorr verdicts"
+    counts = H.launch_counts()
+    log(f"launches on the sign path: {json.dumps(counts)}")
+    n_sign = -(-len(hashes) // args.bucket)        # slices of the bulk
+    n_schnorr = -(-len(got) // args.bucket)
+    want = {"ecdsa_sign": 1 + n_sign, "fixed_base_affine": 1,
+            "verify_prep_core": 1 + n_sign,
+            "build_tables": 1 + n_sign + n_schnorr,
+            "glv_scan": 1 + n_sign + n_schnorr}
+    assert counts == {k: want.get(k, 0) for k in counts}, \
+        "sign path launch counts"
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # Phase 4 timing
 
@@ -361,6 +608,10 @@ def main(argv=None) -> int:
     ap.add_argument("--channels", type=int, default=100_000)
     ap.add_argument("--nodes", type=int, default=12_500)
     ap.add_argument("--bucket", type=int, default=65536)
+    ap.add_argument("--htlcs", type=int, default=MAX_HTLCS,
+                    help="HTLCs a commitment in phase 5")
+    ap.add_argument("--commitments", type=int, default=136,
+                    help="commitments of the bulk fan-out in phase 5")
     ap.add_argument("--mainnet", action="store_true",
                     help="250,000 channels and 60,000 nodes "
                          "(about 1.56 M signatures)")
@@ -402,7 +653,7 @@ def main(argv=None) -> int:
         smem = "" if "smem" in rep else " | 0 bytes static smem"
         log(f"  ptxas {k}: " + " | ".join(rep.splitlines()) + smem)
     for k in ("build_tables", "glv_scan", "glv_scan2", "dual_mul_v2",
-              "dual_mul_planes"):
+              "dual_mul_planes", "fixed_base", "ecdsa_sign"):
         n = getattr(_build.lib(k), f"{k}_blocks_per_sm")()
         log(f"  {k}: {n} blocks resident per SM")
 
@@ -426,6 +677,11 @@ def main(argv=None) -> int:
         note("dual_mul_v2", compare_k5(H, F, *k5_inputs(gen, B, dev, torch)))
         note("dual_mul_planes", compare_k6(H, F, *k6_inputs(gen, B, dev,
                                                             torch)))
+        note("fixed_base", compare_s1(H, F, s1_inputs(gen, B, dev, F, ref)))
+        for C in H.SIGN_CANDIDATES:
+            bad, err, _ = compare_s2(H, F, *s2_inputs(
+                gen, B, C, dev, F, E, ref, torch))
+            note("ecdsa_sign", (bad, err))
         torch.cuda.synchronize()
         log(f"compare B={B}: " + json.dumps(result))
         for digit in (0, 15):
@@ -433,6 +689,13 @@ def main(argv=None) -> int:
             note("dual_mul_v2", got)
             log(f"compare dual_mul_v2 B={B}, every digit {digit}: {got[0]} "
                 f"rows differ, max |limb difference| {got[1]}")
+    ops = s2_inputs(gen, Bk, 4, dev, F, E, ref, torch)
+    bad, err, got = compare_s2(H, F, *ops)
+    note("ecdsa_sign", (bad, err))
+    off, high = s2_rule_sample(E, F, gen, *ops, got, 1024)
+    log(f"S2 against the exact-int four-candidate rule: {off} of 1024 "
+        f"sampled rows differ; {high} of them have no low-R candidate")
+    assert off == 0 and high > 0, "S2 off the four-candidate rule"
     note("verify_prep", compare_k1(H, F, *k1_edges(dev, F, ref)))
     B_zero = max(Bk, 2 * H.PREP_THREADS) + 37
     note("verify_prep", compare_k1(H, F, *k1_zero_cases(gen, B_zero, dev, F,
@@ -470,7 +733,8 @@ def main(argv=None) -> int:
         n_corrupt=64, off_curve=1, bad_tag=1, oversized=3)
     t_synth = time.perf_counter() - t0
     log(f"synth: {info['sigs']} signatures ({args.channels} channels, "
-        f"{args.nodes} nodes, 2 updates/channel) in {t_synth:.1f} s")
+        f"{args.nodes} nodes, 2 updates/channel) signed on S1 and S2 in "
+        f"{t_synth:.1f} s")
     expected = info["expected_sig_ok"]
 
     def replay(engine):
@@ -607,6 +871,56 @@ def main(argv=None) -> int:
             "max_abs_err": result[k]["err"], "mismatches":
             result[k]["mismatch"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # S1 and S2 (C = 4) at the bucket size; their work depends on the
+    # data: the nonzero digits of each scalar, and for S2 the candidates
+    # each row tries (up to its first low R, read from S2 at C = 1 on
+    # each candidate alone)
+    comb = H._comb_words(str(dev))
+    k8 = s1_inputs(gen, Bk, dev, F, ref)
+    z8, d8, ks8 = s2_inputs(gen, Bk, 4, dev, F, E, ref, torch)
+    xy = [torch.empty((8, Bk), dtype=torch.int32, device=dev)
+                 for _ in range(2)]
+    flags = [torch.empty(Bk, dtype=torch.uint8, device=dev) for _ in range(2)]
+    low = torch.stack([H.ecdsa_sign(z8, d8, ks8[c:c + 1])[3]
+                       for c in range(4)])
+    adds, points = H.sign_work(ks8, low)
+    s1_adds = H.nonzero_digits(k8).double().mean().item()
+    table_bytes = comb.numel() * 4
+    sign_runs = {
+        "fixed_base": (lambda: H._launch("fixed_base", k8, comb, *xy, B=Bk),
+                       lambda: H.fixed_base_affine_plain(k8),
+                       Bk * 3 * 32 + table_bytes,
+                       H.comb_op_counts(opc, s1_adds, 1, 2, 0)),
+        "ecdsa_sign": (lambda: H._launch("ecdsa_sign", z8, d8, ks8, comb,
+                                         *xy, *flags, B=Bk,
+                                         entry="ecdsa_sign4"),
+                       lambda: H.ecdsa_sign_plain(z8, d8, ks8),
+                       Bk * (2 * 32 + 4 * 32 + 2 * 32 + 2) + table_bytes,
+                       H.comb_op_counts(opc, adds, points, 1, 1)),
+    }
+    log(f"S1 data: {s1_adds:.3f} nonzero digits a scalar; S2 data: "
+        f"{points:.4f} candidates tried a row, {adds:.3f} comb additions")
+    sign_records = {}
+    for k, (kern, plain, nbytes, ops) in sign_runs.items():
+        ms = time_cuda(torch, kern, reps=20)
+        plain_ms = time_cuda(torch, plain, reps=1, warm=1)
+        b_ms, b_by = bound_ms(ops, H, Bk, nbytes, clock)
+        log(f"time {k}: {ms:.4f} ms/call at B={Bk}, plain {plain_ms:.1f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; field ops a row {ops}; SM clock "
+            f"{clock / 1e6:.0f} MHz)")
+        sign_records[k] = {
+            "name": k, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k], "launches": None, "path": "sign",
+            "max_abs_err": result[k]["err"], "mismatches":
+            result[k]["mismatch"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        kernels.append(sign_records[k])
+
+    # -- phase 5: the sign path at full width
+    counts = sign_path(args, gen, dev, card, torch, F, E, H, ref)
+    for k, rec in sign_records.items():
+        rec["launches"] = counts[WRAPPER.get(k, k)]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Carry state from the JAX package's arrays into the port's tensors.
 
 The port learns nothing from data; what both packages must share is limb
-data, the constant window tables and a scanned store.  The JAX package
+data, the constant window tables (the verify scans' and the sign path's
+comb) and a scanned store.  The JAX package
 holds them as numpy arrays: field elements as uint32 (..., 20) radix-2^13
 limbs, which become int64 tensors here (same values, the port's dtype).
 The caller passes the arrays in; this module imports nothing of the JAX
@@ -28,6 +29,17 @@ def limbs(arr, device="cpu") -> torch.Tensor:
     if a.shape[-1] != NLIMBS:
         raise ValueError(f"expected (..., {NLIMBS}) limbs, got {a.shape}")
     return torch.as_tensor(a.astype(np.int64), device=device)
+
+
+def comb_table(arr, device="cpu") -> torch.Tensor:
+    """The JAX package's comb table (``_comb_table()``: (64, 16, 2, 20)
+    uint32 limbs, entry [j][v] the affine v * 2^(4j) * G, v = 0 unused)
+    -> the port's, ``secp256k1._comb_table()`` as an int64 tensor."""
+    a = np.asarray(arr)
+    if a.shape != (64, 16, 2, NLIMBS):
+        raise ValueError(f"expected a (64, 16, 2, {NLIMBS}) comb table, "
+                         f"got {a.shape}")
+    return limbs(a, device)
 
 
 def store_index(idx) -> StoreIndex:

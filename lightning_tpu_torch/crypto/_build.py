@@ -26,6 +26,8 @@ SOURCES = {
     "glv_scan2": "glv_scan2.cu",
     "dual_mul_v2": "dual_mul_v2.cu",
     "dual_mul_planes": "dual_mul_planes.cu",
+    "fixed_base": "fixed_base.cu",
+    "ecdsa_sign": "ecdsa_sign.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

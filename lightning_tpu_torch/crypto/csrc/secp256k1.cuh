@@ -1,4 +1,5 @@
-// secp256k1 field, scalar and point arithmetic for the verify kernels.
+// secp256k1 field, scalar and point arithmetic for the verify and sign
+// kernels.
 //
 // Representation: a field element is 8 little-endian 32-bit words, fully
 // reduced ([0, p) or [0, n)) after every operation.  One thread owns one
@@ -17,8 +18,11 @@
 //   compute both candidates from the carry or borrow flag and select with
 //   a mask: no data-dependent branch.
 // * mod n: Montgomery multiplication and squaring (R = 2^256) as a product
-//   and a separate reduction (REDC); used only by the inversions of the
-//   prep kernel, which run in the Montgomery domain.
+//   and a separate reduction (REDC); used by the prep kernel's inversions
+//   and the sign kernel's s = k^-1 (z + r d), which run in the Montgomery
+//   domain.
+// * k*G: a comb over a table of v * 2^(4j) * G (64 windows, one mixed
+//   addition each, no doubling), then x / Z by a Fermat inversion mod p.
 // * points: homogeneous projective (X:Y:Z), infinity (0:1:0), with the
 //   Renes-Costello-Batina complete formulas for a = 0 (b3 = 21), in the
 //   same operation order as the plain PyTorch engine, so every output is
@@ -445,6 +449,28 @@ HD void fp_sqrt(uint32_t out[8], const uint32_t a[8]) {
     fp_sqr_n(out, acc, 2);                          // append 00
 }
 
+// a^(p-2) = a^-1 mod p (0 -> 0): libsecp256k1's addition chain over the
+// blocks of ones of p - 2 (lengths 1, 2, 22 and 223), 255 squarings and
+// 15 multiplications; the plain engine's inv_p, op for op.
+HD void fp_inv(uint32_t out[8], const uint32_t a[8]) {
+    uint32_t x2[8], x3[8], x11[8], x22[8], x44[8], acc[8], t[8];
+    fp_sqr_n(t, a, 1);    fp_mul(x2, t, a);
+    fp_sqr_n(t, x2, 1);   fp_mul(x3, t, a);
+    fp_sqr_n(t, x3, 3);   fp_mul(acc, t, x3);       // x6
+    fp_sqr_n(t, acc, 3);  fp_mul(acc, t, x3);       // x9
+    fp_sqr_n(t, acc, 2);  fp_mul(x11, t, x2);
+    fp_sqr_n(t, x11, 11); fp_mul(x22, t, x11);
+    fp_sqr_n(t, x22, 22); fp_mul(x44, t, x22);
+    fp_sqr_n(t, x44, 44); fp_mul(acc, t, x44);      // x88
+    fp_sqr_n(t, acc, 88); fp_mul(acc, t, acc);      // x176
+    fp_sqr_n(t, acc, 44); fp_mul(acc, t, x44);      // x220
+    fp_sqr_n(t, acc, 3);  fp_mul(acc, t, x3);       // x223
+    fp_sqr_n(t, acc, 23); fp_mul(acc, t, x22);
+    fp_sqr_n(t, acc, 5);  fp_mul(acc, t, a);
+    fp_sqr_n(t, acc, 3);  fp_mul(acc, t, x2);
+    fp_sqr_n(t, acc, 2);  fp_mul(out, t, a);
+}
+
 // ---------------------------------------------------------------------------
 // Arithmetic mod n (Montgomery, R = 2^256); inputs < n
 
@@ -485,6 +511,16 @@ HD void fn_mont_sqr(uint32_t r[8], const uint32_t a[8]) {
     uint32_t t[16];
     fe_sqr_wide(t, a);
     fn_redc(r, t);
+}
+
+// r = (a + b) mod n for a, b < n: the sum less n where it carries out
+// or is at least n.
+HD void fn_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+    uint32_t n[8], t[8];
+    fe_set_n(n);
+    uint32_t c = fe_add_raw(r, a, b);
+    uint32_t bw = fe_sub_raw(t, r, n);
+    fe_select(r, 0u - (c | (bw ^ 1u)), t, r);
 }
 
 HD void fn_mont_sqr_n(uint32_t r[8], const uint32_t a[8], int k) {
@@ -1039,4 +1075,122 @@ HD void dual_scan_one(const Q &qsel, const uint32_t *gs, long long stride,
             pt_add(acc, acc, q);
         }
     }
+}
+
+// ---------------------------------------------------------------------------
+// Fixed-base k*G by the comb (S1, S2)
+
+#define COMB_WINDOWS 64
+#define COMB_ENTRY_WORDS 16                   // affine x, then y
+#define COMB_ROW_WORDS (15 * COMB_ENTRY_WORDS)
+
+// 8 words of a read-only table: two 16-byte loads through the read-only
+// data cache on the device (src 16-byte aligned).
+HD void fe_ldg(uint32_t r[8], const uint32_t *src) {
+#ifdef __CUDA_ARCH__
+    const uint4 a = __ldg(reinterpret_cast<const uint4 *>(src));
+    const uint4 b = __ldg(reinterpret_cast<const uint4 *>(src) + 1);
+    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+    r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+#else
+    for (int k = 0; k < 8; k++) r[k] = src[k];
+#endif
+}
+
+// Digit j (bits 4j .. 4j + 3) of k; the word is selected without an
+// index into k, so k stays in registers.
+HD uint32_t comb_digit(const uint32_t k[8], int j) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) w = (i == (j >> 3)) ? k[i] : w;
+    return (w >> (4 * (j & 7))) & 15u;
+}
+
+// acc = k*G for any 256-bit k: the sum over the 64 windows j of
+// d_j * 2^(4j) * G, d_j the 4-bit digits of k.  comb is the (64, 15, 2, 8)
+// word table of the affine (x, y) of v * 2^(4j) * G, v = 1..15; each
+// window is one mixed addition (pt_add_z1) of entry (j, d_j - 1).  A digit
+// 0 adds nothing: the table holds no point at infinity, which a mixed
+// addition could not take.  The loop holds one copy of pt_add_z1; the
+// threads of a warp read entries of the same row j in each step.
+HD void comb_mul_one(pt &acc, const uint32_t k[8], const uint32_t *comb) {
+    uint32_t x[8], y[8];
+    pt_set_inf(acc);
+#pragma unroll 1
+    for (int j = 0; j < COMB_WINDOWS; j++) {
+        const uint32_t d = comb_digit(k, j);
+        if (d == 0) continue;
+        const uint32_t *e = comb + j * COMB_ROW_WORDS
+                            + (int)(d - 1) * COMB_ENTRY_WORDS;
+        fe_ldg(x, e);
+        fe_ldg(y, e + 8);
+        pt_add_z1(acc, acc, x, y);
+    }
+}
+
+// S1's body: k*G as normalized affine (x, y); infinity gives (0, 0).
+HD void fixed_base_one(const uint32_t k[8], const uint32_t *comb,
+                       uint32_t x[8], uint32_t y[8]) {
+    pt acc;
+    uint32_t zi[8];
+    comb_mul_one(acc, k, comb);
+    fp_inv(zi, acc.z);
+    fp_mul(x, acc.x, zi);
+    fp_mul(y, acc.y, zi);
+}
+
+// S2's body: ECDSA signing with low-R grinding over C nonce candidates
+// (C = 1: one nonce, no grinding); word w of candidate c is at
+// ks[(8 c + w) * stride].  Candidate by candidate: R = k*G by the comb,
+// r = x(R) mod n (x < p < 2n: one conditional subtraction); the first r
+// that is low (bit 255 clear) and nonzero is taken, else candidate 0's.
+// Then s = k^-1 (z + r d) mod n by Montgomery products (R = 2^256): z
+// and d reduced mod n once, r R = r (R^2 mod n), r d = (r R) d, k R =
+// k (R^2 mod n), k^-1 R = (k R)^(n-2), s = (k^-1 R)(z + r d).  Low-S:
+// s > (n - 1) / 2 becomes n - s.  ok: r and s nonzero; grind: a low-R
+// candidate was found.
+template <int C>
+HD void sign_one(const uint32_t z[8], const uint32_t d[8],
+                 const uint32_t *ks, long long stride, const uint32_t *comb,
+                 uint32_t r[8], uint32_t s[8], uint32_t &ok,
+                 uint32_t &grind) {
+    uint32_t n[8], k[8], ksel[8], x[8], rc[8], zi[8];
+    pt acc;
+    fe_set_n(n);
+    grind = 0;
+#pragma unroll 1
+    for (int c = 0; c < C; c++) {
+        fe_load(k, ks + (long long)(8 * c) * stride, stride);
+        comb_mul_one(acc, k, comb);
+        fp_inv(zi, acc.z);
+        fp_mul(x, acc.x, zi);
+        fe_reduce_once(rc, x, n);
+        const uint32_t low = ((rc[7] >> 31) ^ 1u) & (fe_is_zero(rc) ^ 1u);
+        if (c == 0 || low) {
+            fe_copy(r, rc);
+            fe_copy(ksel, k);
+        }
+        if (low) {
+            grind = 1;
+            break;
+        }
+    }
+    uint32_t r2[8], t[8], u[8], kinv[8], zr[8], dr[8], half[8], neg[8];
+    fe_set_r2n(r2);
+    fe_reduce_once(zr, z, n);
+    fe_reduce_once(dr, d, n);
+    fn_mont_mul(t, r, r2);            // r R
+    fn_mont_mul(t, t, dr);            // r d
+    fn_add(u, zr, t);                 // z + r d
+    fn_mont_mul(t, ksel, r2);         // k R
+    fn_inv_mont(kinv, t);             // k^-1 R
+    fn_mont_mul(s, kinv, u);          // k^-1 (z + r d)
+#pragma unroll
+    for (int i = 0; i < 7; i++)       // (n - 1) / 2 = n >> 1
+        half[i] = (n[i] >> 1) | (n[i + 1] << 31);
+    half[7] = n[7] >> 1;
+    const uint32_t high = fe_sub_raw(t, half, s);
+    fe_sub_raw(neg, n, s);
+    fe_select(s, 0u - high, neg, s);
+    ok = (fe_is_zero(r) ^ 1u) & (fe_is_zero(s) ^ 1u);
 }

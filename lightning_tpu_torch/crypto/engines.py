@@ -1,5 +1,7 @@
 """The verify engines: every engine name the JAX package takes, the host
-glue that feeds each engine's kernels, and batched ECDSA verify.
+glue that feeds each engine's kernels, and batched ECDSA verify; and the
+sign path's batch entry points (ECDSA sign, k*G, BIP340 verify) with
+their exact-int oracles.
 
 An engine name is ``<dual mul>`` or ``<dual mul>+<prep>`` (``+pp`` is the
 ``pallas`` prep), as the JAX package's ``resolve_dual_mul``,
@@ -34,6 +36,8 @@ bucket).
 from __future__ import annotations
 
 import functools
+import hashlib
+import time
 
 import numpy as np
 import torch
@@ -42,7 +46,9 @@ from .. import device as D
 from . import field as F
 from . import glv as GLV
 from . import hopper_secp as H
+from . import ref_python as ref
 from . import secp256k1 as S
+from . import sha256 as SHA
 from .field import FN, FP
 
 DEFAULT_ENGINE = "pallas_fbj+pp"
@@ -293,3 +299,188 @@ def ecdsa_verify_batch(msg_hashes: np.ndarray, sigs64: np.ndarray,
         out[sl] = ok.cpu().numpy()
     tag_ok = (pubkeys33[:, 0] == 2) | (pubkeys33[:, 0] == 3)
     return out & tag_ok
+
+
+# ---------------------------------------------------------------------------
+# ECDSA sign and k*G (S2 and S1), BIP340 verify
+
+GRIND_CANDIDATES = S.GRIND_CANDIDATES
+SIGN_BUCKET = 65536
+
+
+def rfc6979_candidates(msg_hash: bytes, seckey: int,
+                       count: int = GRIND_CANDIDATES) -> list[int]:
+    """The first `count` nonces of the low-R grinding stream: RFC6979
+    with no extra data, then with c.to_bytes(32, "little") for c >= 1
+    (the counter libsecp256k1's sign_hash passes as ndata)."""
+    return [ref.rfc6979_nonce(msg_hash, seckey,
+                              None if c == 0 else c.to_bytes(32, "little"))
+            for c in range(count)]
+
+
+def sign_with_candidates(z: int, d: int,
+                         ks: list[int]) -> tuple[int, int, bool, bool]:
+    """S2's rule in exact ints, candidate by candidate: r = x(k*G) mod n
+    of the first candidate whose r is below 2^255 and nonzero, else of
+    candidate 0; s = k^-1 (z + r d) mod n, low-S.  Returns (r, s, ok,
+    grind_ok): ok is r and s nonzero, grind_ok that a low-R candidate was
+    found."""
+    r = kk = 0
+    grind = False
+    for c, k in enumerate(ks):
+        rc = ref.point_mul(k, ref.G).x % ref.N
+        if c == 0:
+            r, kk = rc, k
+        if 0 < rc < 2**255:
+            r, kk, grind = rc, k, True
+            break
+    s = pow(kk, -1, ref.N) * (z + r * d) % ref.N if kk % ref.N else 0
+    ok = r != 0 and s != 0
+    if s > S.HALF_N:
+        s = ref.N - s
+    return r, s, ok, grind
+
+
+def host_sign_batch(msg_hashes: np.ndarray, seckeys: list[int]) -> np.ndarray:
+    """The JAX package's host signer (lightning_tpu/crypto/secp256k1.py
+    :765): ``ref.ecdsa_sign``, which grinds the RFC6979 stream until r is
+    low, with no bound on the candidates.  (B, 64) compact r || s."""
+    out = np.empty((msg_hashes.shape[0], 64), np.uint8)
+    for i, (h, d) in enumerate(zip(msg_hashes, seckeys)):
+        r, s = ref.ecdsa_sign(bytes(h), d)
+        out[i] = np.frombuffer(r.to_bytes(32, "big") + s.to_bytes(32, "big"),
+                               np.uint8)
+    return out
+
+
+def host_sign_grind_batch(msg_hashes: np.ndarray, seckeys: list[int],
+                          candidates: int = GRIND_CANDIDATES) -> np.ndarray:
+    """``ecdsa_sign_batch`` in exact ints: the rule of
+    ``sign_with_candidates`` over the first `candidates` RFC6979 nonces.
+    It differs from ``host_sign_batch`` on a row with no low-R nonce among
+    them (about 1 in 16 for four), where this takes candidate 0's high R.
+    (B, 64) compact r || s; raises on a degenerate row, as the batch
+    does."""
+    out = np.empty((msg_hashes.shape[0], 64), np.uint8)
+    for i, (h, d) in enumerate(zip(msg_hashes, seckeys)):
+        h = bytes(h)
+        r, s, ok, _ = sign_with_candidates(
+            int.from_bytes(h, "big"), d, rfc6979_candidates(h, d, candidates))
+        if not ok:
+            raise RuntimeError(f"degenerate nonce at row {i}")
+        out[i] = np.frombuffer(r.to_bytes(32, "big") + s.to_bytes(32, "big"),
+                               np.uint8)
+    return out
+
+
+def _sign_rows(z: np.ndarray, d: np.ndarray, ks: np.ndarray, bucket: int,
+               dev) -> np.ndarray:
+    """S2 over slices of `bucket` rows: z, d (B, 32) and ks (B, C, 32)
+    big-endian bytes -> (B, 64) compact signatures; raises where r or s
+    is 0."""
+    out = np.empty((z.shape[0], 64), np.uint8)
+    for start in range(0, z.shape[0], bucket):
+        sl = slice(start, start + bucket)
+        k8 = torch.stack([F.words_from_be_bytes(ks[sl, c], dev)
+                          for c in range(ks.shape[1])])
+        r, s, ok, _ = H.ecdsa_sign(F.words_from_be_bytes(z[sl], dev),
+                                   F.words_from_be_bytes(d[sl], dev), k8)
+        bad = np.nonzero(~ok.cpu().numpy())[0]
+        if len(bad):
+            raise RuntimeError(f"degenerate nonce at rows "
+                               f"{(bad + start)[:8].tolist()}")
+        out[sl, :32] = F.words_to_be_bytes(r)
+        out[sl, 32:] = F.words_to_be_bytes(s)
+    return out
+
+
+@torch.inference_mode()
+def ecdsa_sign_batch(msg_hashes: np.ndarray, seckeys: list[int],
+                     bucket: int = SIGN_BUCKET, device=None,
+                     seconds: dict | None = None) -> np.ndarray:
+    """Batched deterministic ECDSA sign: (B, 32) uint8 hashes and B secret
+    keys in [1, n) -> (B, 64) compact r || s, low-S.  The four RFC6979
+    candidates of each row are made on the host; S2 (C = 4) grinds them
+    on `device` (the card unless device="cpu") in slices of `bucket`
+    rows.  The result is ``host_sign_grind_batch``'s, byte for byte.
+
+    Where the JAX package pads each slice with rows of k = 1, z = 0 and
+    d = 0, the kernel masks its ragged edge, so no padding row is signed.
+    Every batch signs on the device: the JAX package's micro-batch branch
+    (B <= HOST_VERIFY_MAX = 2 signs on the host, secp256k1.py :787) is a
+    host escape the port does not have.  So for B <= 2, on a row with no
+    low-R candidate among the four, the JAX package returns a low-R
+    signature from further down the stream and the port candidate 0's
+    high-R one.  Pass a dict as `seconds` to get the host nonce time
+    ("nonces") and the device time ("device", operands in, signatures
+    back)."""
+    dev = D.resolve(device)
+    t0 = time.perf_counter()
+    ks = np.stack([F.ints_to_be_bytes(rfc6979_candidates(bytes(h), d))
+                   for h, d in zip(msg_hashes, seckeys)]) \
+        if len(seckeys) else np.zeros((0, GRIND_CANDIDATES, 32), np.uint8)
+    t1 = time.perf_counter()
+    out = _sign_rows(msg_hashes, F.ints_to_be_bytes(seckeys), ks, bucket, dev)
+    if seconds is not None:
+        seconds["nonces"] = t1 - t0
+        seconds["device"] = time.perf_counter() - t1
+    return out
+
+
+@torch.inference_mode()
+def ecdsa_sign_simple(msg_hashes: np.ndarray, seckeys: list[int],
+                      nonces: list[int], bucket: int = SIGN_BUCKET,
+                      device=None) -> np.ndarray:
+    """ECDSA with the caller's nonces (one a row, no grinding), low-S:
+    S2 with C = 1, the JAX package's ecdsa_sign_simple_kernel.  (B, 64)
+    compact r || s; raises where r or s is 0."""
+    dev = D.resolve(device)
+    ks = F.ints_to_be_bytes(nonces)[:, None]
+    return _sign_rows(msg_hashes, F.ints_to_be_bytes(seckeys), ks, bucket,
+                      dev)
+
+
+@torch.inference_mode()
+def derive_pubkeys(seckeys, bucket: int = SIGN_BUCKET,
+                   device=None) -> np.ndarray:
+    """(B, 20) canonical secret-key limbs -> (B, 33) compressed SEC1
+    public keys, d*G by S1 on `device` (the card unless device="cpu")."""
+    dev = D.resolve(device)
+    limbs = torch.as_tensor(np.asarray(seckeys, np.int64))
+    out = np.empty((limbs.shape[0], 33), np.uint8)
+    for start in range(0, limbs.shape[0], bucket):
+        sl = slice(start, start + bucket)
+        x, y = H.fixed_base_affine(F.to_u32x8(limbs[sl]).to(dev))
+        out[sl, 0] = 2 + (y[0].cpu().numpy() & 1)
+        out[sl, 1:] = F.words_to_be_bytes(x)
+    return out
+
+
+@torch.inference_mode()
+def schnorr_verify_batch(msgs32: np.ndarray, sigs64: np.ndarray,
+                         pubkeys32: np.ndarray, bucket: int = VERIFY_BUCKET,
+                         device=None) -> np.ndarray:
+    """BIP340 verify of 32-byte messages: (B, 32), (B, 64) and (B, 32)
+    uint8 -> bool (B,).  The challenge is hashed by ``crypto/sha256.py``
+    and s*G - e*P runs on the main path's scan (``dual_mul_pallas_fbj``,
+    K2 + K3 on the card); the lift of P, the affine step and the parity
+    check are plain torch, as they are XLA stages in the JAX package."""
+    dev = D.resolve(device)
+    th = hashlib.sha256(b"BIP0340/challenge").digest()
+    msgs = [th + th + bytes(sig[:32]) + bytes(pk) + bytes(m)
+            for m, sig, pk in zip(msgs32, sigs64, pubkeys32)]
+    out = np.zeros(len(msgs), bool)
+    for start in range(0, len(msgs), bucket):
+        sl = slice(start, start + bucket)
+        blocks, nblocks = SHA.pack_messages(msgs[sl])
+        e = SHA.digest_words_to_limbs(SHA.sha256_blocks(
+            torch.from_numpy(blocks).to(dev),
+            torch.from_numpy(nblocks).to(dev)))
+        sig = torch.from_numpy(np.ascontiguousarray(sigs64[sl])).to(dev)
+        px = torch.from_numpy(np.ascontiguousarray(pubkeys32[sl])).to(dev)
+        ok = S.schnorr_verify_kernel(
+            e, F.from_bytes_be_dev(sig[:, :32]),
+            F.from_bytes_be_dev(sig[:, 32:]), F.from_bytes_be_dev(px),
+            dual_mul_pallas_fbj)
+        out[sl] = ok.cpu().numpy()
+    return out

@@ -502,3 +502,23 @@ def from_u32x8(w: torch.Tensor) -> torch.Tensor:
             v = v | (w[k0 + 1] << (32 - r))
         limbs.append(v & LIMB_MASK)
     return torch.stack(limbs, dim=-1)
+
+
+def words_from_be_bytes(data: np.ndarray, device="cpu") -> torch.Tensor:
+    """Host (B, 32) uint8 big-endian values -> (8, B) int32 kernel words
+    (any 256-bit value, reduced by no modulus)."""
+    le = np.ascontiguousarray(np.asarray(data, np.uint8)[:, ::-1])
+    return torch.from_numpy(np.ascontiguousarray(le.view("<i4").T)) \
+        .to(device)
+
+
+def words_to_be_bytes(w: torch.Tensor) -> np.ndarray:
+    """(8, B) int32 kernel words -> host (B, 32) uint8 big-endian."""
+    le = np.ascontiguousarray(w.cpu().numpy().T.astype("<i4"))
+    return np.ascontiguousarray(le.view(np.uint8)[:, ::-1])
+
+
+def ints_to_be_bytes(xs) -> np.ndarray:
+    """Python ints in [0, 2^256) -> host (B, 32) uint8 big-endian."""
+    raw = bytearray(b"".join(x.to_bytes(32, "big") for x in xs))
+    return np.frombuffer(raw, np.uint8).reshape(-1, 32)

@@ -1,5 +1,6 @@
-"""The verify engines' six hand-written CUDA kernels: wrappers, plain
-versions and launch counters.
+"""The port's eight hand-written CUDA kernels: wrappers, plain versions
+and launch counters.  K1-K6 are the verify engines' (each replaces a
+pallas_call), S1 and S2 the sign path's (each replaces an XLA program).
 
 Each kernel has, beside its wrapper:
 
@@ -20,10 +21,15 @@ tensors it launches its kernel or raises: there is no fallback.
 | K5 csrc/dual_mul_v2.cu | ``dual_mul_v2`` | ``_dual_mul_kernel_v2``, pallas_call :462 |
 | K6 csrc/dual_mul_planes.cu | ``dual_mul_planes`` | ``_dual_mul_kernel``, pallas_call :807 |
 
-All six are bound by 32-bit integer multiplies: ``field_op_counts``
+| kernel | wrapper | replaces (lightning_tpu/crypto/secp256k1.py, XLA) |
+| --- | --- | --- |
+| S1 csrc/fixed_base.cu | ``fixed_base_affine`` | ``derive_pubkeys_kernel`` :451 |
+| S2 csrc/ecdsa_sign.cu | ``ecdsa_sign`` | ``ecdsa_sign_kernel`` :405 (C = 4), ``ecdsa_sign_simple_kernel`` :437 (C = 1) |
+
+All eight are bound by 32-bit integer multiplies: ``field_op_counts``
 counts the field operations of each plain version, less its products by
-K2's base's Z = 1 (the kernels repeat them op for op, K2 without those
-products) and ``PRODUCTS`` holds the fewest 32-bit products each
+a constant Z = 1 (K2's base, the comb's entries: the kernels repeat the
+rest op for op) and ``PRODUCTS`` holds the fewest 32-bit products each
 needs; their bound is computed from the two.  The kernels
 keep field elements as 8 x 32-bit words (``field.to_u32x8``), limbs first
 with the batch fastest; the conversion from and to radix-2^13 limbs is
@@ -31,7 +37,12 @@ plain torch in the wrappers.  K4-K6 take their points as word planes,
 (n, 3, 8, B) int32: entry, coordinate, word, signature; K5 takes its
 per-key table signature-major, (B, 16, 3, 8).  Which operands are
 selected in the kernel and which outside is what tells the engines apart
-(``engines.py``), so each kernel keeps its TPU twin's contract.
+(``engines.py``), so each kernel keeps its TPU twin's contract.  S1 and S2
+take and return (8, B) words (``field.words_from_be_bytes`` makes them
+from bytes on the host), and read the comb table of v * 2^(4j) * G as
+(64, 15, 2, 8) words; their work depends on the data (the nonzero digits
+of each scalar, and for S2 the candidates tried), which
+``comb_op_counts`` counts.
 """
 from __future__ import annotations
 
@@ -82,19 +93,25 @@ def _stream() -> ctypes.c_void_p:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(name: str, n_ptr: int):
-    fn = getattr(_build.lib(name), f"{name}_launch")
+def _kernel(name: str, entry: str, n_ptr: int):
+    fn = getattr(_build.lib(name), f"{entry}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, *tensors: torch.Tensor, B: int) -> None:
+def _launch(name: str, *tensors: torch.Tensor, B: int,
+            entry: str | None = None) -> None:
+    """Launch ``<entry>_launch`` (by default ``<name>_launch``) of kernel
+    library `name` on the current stream; operands are contiguous int32
+    CUDA tensors (uint8 for byte flags)."""
     for t in tensors:
-        if not (t.is_cuda and t.is_contiguous() and t.dtype == torch.int32):
+        if not (t.is_cuda and t.is_contiguous()
+                and t.dtype in (torch.int32, torch.uint8)):
             raise ValueError(f"{name}: operands must be contiguous int32 "
-                             "CUDA tensors")
-    rc = _kernel(name, len(tensors))(*map(_ptr, tensors), B, _stream())
+                             "(or uint8 flag) CUDA tensors")
+    rc = _kernel(name, entry or name, len(tensors))(*map(_ptr, tensors), B,
+                                                    _stream())
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -126,9 +143,9 @@ def _expect(name: str, t: torch.Tensor, shape: tuple) -> None:
                          f"expected {shape}")
 
 
-def _scan_out(B: int, device) -> list[torch.Tensor]:
+def _scan_out(B: int, device, n: int = 3) -> list[torch.Tensor]:
     return [torch.empty((8, B), dtype=torch.int32, device=device)
-            for _ in range(3)]
+            for _ in range(n)]
 
 
 def _i32(*ts: torch.Tensor) -> list[torch.Tensor]:
@@ -417,8 +434,85 @@ def dual_mul_planes(qs, gs):
 dual_mul_planes.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# S1 and S2: k*G by the comb, and ECDSA signing
+
+
+@functools.lru_cache(maxsize=None)
+def _comb_words(device: str) -> torch.Tensor:
+    """The comb table v * 2^(4j) * G, v = 1..15, as (64, 15, 2, 8) int32
+    words (61,440 bytes)."""
+    tab = torch.as_tensor(S._comb_table()[:, 1:])            # (64, 15, 2, 20)
+    return F.to_u32_rows(tab.reshape(-1, NLIMBS)).reshape(64, 15, 2, 8) \
+        .contiguous().to(device)
+
+
+def fixed_base_affine_plain(k):
+    """Plain version of S1: ``derive_pubkeys_kernel`` (point_to_affine of
+    the comb, normalized) on words.  k: (8, B) words -> (x, y) words."""
+    return tuple(map(F.to_u32x8, S.derive_pubkeys_kernel(F.from_u32x8(k))))
+
+
+def fixed_base_affine(k):
+    """S1 wrapper: k*G for (8, B) int32 scalar words; returns normalized
+    affine (x, y) as (8, B) words, (0, 0) for infinity."""
+    if not _on_card(k):
+        return fixed_base_affine_plain(k)
+    B = k.shape[-1]
+    _expect("fixed_base_affine", k, (8, B))
+    x, y = _scan_out(B, k.device, 2)
+    _launch("fixed_base", k.to(torch.int32).contiguous(),
+            _comb_words(str(k.device)), x, y, B=B)
+    fixed_base_affine.launches += 1
+    return x, y
+
+
+fixed_base_affine.launches = 0
+
+
+def ecdsa_sign_plain(z, d, ks):
+    """Plain version of S2: ``ecdsa_sign_kernel`` (C > 1) or
+    ``ecdsa_sign_simple_kernel`` (C = 1) on words.  z, d: (8, B); ks:
+    (C, 8, B).  Returns (r, s) words and (ok, grind) bool (B,)."""
+    zl, dl = F.from_u32x8(z), F.from_u32x8(d)
+    if ks.shape[0] == 1:
+        r, s, ok = S.ecdsa_sign_simple_kernel(zl, dl, F.from_u32x8(ks[0]))
+        grind = S._low_r(r) & F.nonzero(r)
+    else:
+        kl = torch.stack([F.from_u32x8(kc) for kc in ks], dim=1)
+        r, s, ok, grind = S.ecdsa_sign_kernel(zl, dl, kl)
+    return F.to_u32x8(r), F.to_u32x8(s), ok, grind
+
+
+SIGN_CANDIDATES = (1, 4)    # the C the kernel is built for
+
+
+def ecdsa_sign(z, d, ks):
+    """S2 wrapper: ECDSA signatures of hashes z by keys d with C nonce
+    candidates ks, all int32 words: z, d (8, B), ks (C, 8, B), C = 1 or 4.
+    Returns r, s as (8, B) words (s low-S) and ok, grind as bool (B,)."""
+    if not _on_card(z):
+        return ecdsa_sign_plain(z, d, ks)
+    C, B = ks.shape[0], z.shape[-1]
+    if C not in SIGN_CANDIDATES:
+        raise ValueError(f"ecdsa_sign: {C} candidates, the kernel takes "
+                         f"{SIGN_CANDIDATES}")
+    for t, shape in ((z, (8, B)), (d, (8, B)), (ks, (C, 8, B))):
+        _expect("ecdsa_sign", t, shape)
+    r, s = _scan_out(B, z.device, 2)
+    ok, grind = (torch.empty(B, dtype=torch.uint8, device=z.device)
+                 for _ in range(2))
+    _launch("ecdsa_sign", *_i32(z, d, ks), _comb_words(str(z.device)), r, s,
+            ok, grind, B=B, entry=f"ecdsa_sign{C}")
+    ecdsa_sign.launches += 1
+    return r, s, ok.bool(), grind.bool()
+
+
+ecdsa_sign.launches = 0
+
+
 KERNELS = (verify_prep_core, build_tables, glv_scan, glv_scan2, dual_mul_v2,
-           dual_mul_planes)
+           dual_mul_planes, fixed_base_affine, ecdsa_sign)
 
 
 def _batch_inversion_counts(plain: dict, chain: dict) -> dict[str, float]:
@@ -439,17 +533,20 @@ def field_op_counts() -> dict[str, dict[str, float]]:
     """Field operations per signature of each kernel, by kind (mul_p,
     sqr_p, mul_n, sqr_n, mul_small_p): its plain version run on one CPU
     signature with F.mul and F.mul_small counted; a product of a tensor
-    with itself counts as a squaring.  K2's base has the constant Z = 1,
-    which its kernel adds by ``pt_add_z1``: a product by that one is not
-    work the function needs, and is not counted.  The window scans run
-    one window and count it once per window of the kernel (every window
-    does the same operations).  K1's entry counts the kernel's batch inversion
+    with itself counts as a squaring.  K2's base and the comb's entries
+    have the constant Z = 1, which the kernels add by ``pt_add_z1``: a
+    product by that one is not work the function needs, and is not
+    counted.  The window scans run one window and count it once per
+    window of the kernel (every window does the same operations).  K1's
+    entry counts the kernel's batch inversion
     (``_batch_inversion_counts``); "verify_prep_chain_per_signature" is
     its plain version's count, a Fermat chain per signature, the design
-    K1 had before."""
+    K1 had before.  S1's and S2's work depends on the data: "comb_add"
+    (one window of the comb), "inv_p" and "inv_n" (the kernels' Fermat
+    chains) are the units ``comb_op_counts`` adds up."""
     counts: dict[str, int] = {}
     real_mul, real_small, real_one = F.mul, F.mul_small, F.one
-    ones: list[torch.Tensor] = []    # K2's base Z while build_tables runs
+    ones: list[torch.Tensor] = []    # Z = 1 operands while a run takes them
 
     def mul(mod, a, b):
         if any(t is o for o in ones for t in (a, b)):
@@ -458,16 +555,24 @@ def field_op_counts() -> dict[str, dict[str, float]]:
         counts[kind] = counts.get(kind, 0) + 1
         return real_mul(mod, a, b)
 
-    def build_tables_run():
+    def with_ones(run):
         def one(*a, **k):
             ones.append(real_one(*a, **k))
             return ones[-1]
         F.one = one
         try:
-            return build_tables_plain(x, y, flip)
+            return run()
         finally:
             F.one = real_one
             ones.clear()
+
+    def build_tables_run():
+        return with_ones(lambda: build_tables_plain(x, y, flip))
+
+    def comb_add_run():
+        comb = F._const("comb", S._comb_table(), x)
+        return with_ones(lambda: S.comb_add((x, y, x), comb, 0,
+                                            torch.ones(1, dtype=torch.int64)))
 
     def mul_small(mod, a, k):
         counts["mul_small_p"] = counts.get("mul_small_p", 0) + 1
@@ -491,6 +596,8 @@ def field_op_counts() -> dict[str, dict[str, float]]:
                         S.NDIGITS),
         "dual_mul_planes": (lambda: dual_mul_planes_plain(point, point),
                             S.NDIGITS),
+        "comb_add": (comb_add_run, 1),
+        "inv_p": (lambda: S.inv_p(y), 1),
     }
     out = {}
     F.mul, F.mul_small = mul, mul_small
@@ -503,8 +610,56 @@ def field_op_counts() -> dict[str, dict[str, float]]:
         F.mul, F.mul_small = real_mul, real_small
     out["verify_prep_chain_per_signature"] = out["verify_prep"]
     out["verify_prep"] = _batch_inversion_counts(out["verify_prep"],
-                                                 out.pop("inv_n"))
+                                                 out["inv_n"])
     return out
+
+
+# S2's Montgomery products a row besides its chain mod n: r and k into
+# the domain, r d, and s = (k^-1 R)(z + r d)
+SIGN_MUL_N = 4
+
+
+def comb_op_counts(units: dict, adds: float, points: float, coords: int,
+                   signs: float) -> dict[str, float]:
+    """Field operations per row of S1 or S2 for what the data needs:
+    `adds` comb additions (the nonzero digits of the scalars the kernel
+    multiplies), `points` conversions to affine (a Fermat chain mod p and
+    `coords` products each), `signs` ECDSA finishes (the chain mod n and
+    SIGN_MUL_N Montgomery products).  `units` is ``field_op_counts()``,
+    which gives the comb addition and the two chains."""
+    out: dict[str, float] = {}
+
+    def put(counts, times):
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v * times
+
+    put(units["comb_add"], adds)
+    put(units["inv_p"], points)
+    put({"mul_p": coords}, points)
+    put(units["inv_n"], signs)
+    put({"mul_n": SIGN_MUL_N}, signs)
+    return {k: v for k, v in out.items() if v}
+
+
+def nonzero_digits(k: torch.Tensor) -> torch.Tensor:
+    """(..., 8, B) scalar words -> (..., B) count of nonzero 4-bit
+    digits: the comb additions a scalar takes."""
+    w = k.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(0, 32, 4, device=k.device)
+    nib = (w[..., None] >> shifts) & 15
+    return (nib != 0).sum(dim=(-3, -1))
+
+
+def sign_work(ks: torch.Tensor, low: torch.Tensor) -> tuple[float, float]:
+    """S2's comb additions and affine conversions a row, on average: each
+    row tries its candidates up to the first whose r is low and nonzero
+    (all C where none is).  ks: (C, 8, B) words; low: (C, B) bool."""
+    C, B = low.shape
+    first = torch.where(low.any(0), torch.argmax(low.to(torch.int64), 0),
+                        C - 1)
+    tried = torch.arange(C, device=low.device)[:, None] <= first[None, :]
+    adds = (nonzero_digits(ks) * tried).sum().item() / B
+    return adds, tried.sum().item() / B
 
 
 def reset_launches() -> None:

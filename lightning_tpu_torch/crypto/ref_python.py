@@ -70,16 +70,54 @@ def point_double(p1: Point) -> Point:
     return Point(x3, y3)
 
 
+def _jac_double(X: int, Y: int, Z: int) -> tuple[int, int, int]:
+    """Jacobian doubling (x = X/Z^2, y = Y/Z^3); Z = 0 is infinity."""
+    if Y == 0 or Z == 0:
+        return 1, 1, 0
+    YY = Y * Y % P
+    S = 4 * X * YY % P
+    M = 3 * X * X % P
+    X3 = (M * M - 2 * S) % P
+    return X3, (M * (S - X3) - 8 * YY * YY) % P, 2 * Y * Z % P
+
+
+def _jac_add_affine(X1: int, Y1: int, Z1: int,
+                    pt: Point) -> tuple[int, int, int]:
+    """Jacobian + affine, with point_add's cases: equal x gives infinity
+    where the y sum is 0 mod p and the doubling otherwise."""
+    if Z1 == 0:
+        return pt.x, pt.y, 1
+    Z1Z1 = Z1 * Z1 % P
+    H = (pt.x * Z1Z1 - X1) % P
+    S2 = pt.y * Z1 * Z1Z1 % P
+    if H == 0:
+        if (S2 + Y1) % P == 0:
+            return 1, 1, 0
+        return _jac_double(X1, Y1, Z1)
+    r = (S2 - Y1) % P
+    HH = H * H % P
+    HHH = H * HH % P
+    V = X1 * HH % P
+    X3 = (r * r - HHH - 2 * V) % P
+    return X3, (r * (V - X3) - Y1 * HHH) % P, Z1 * H % P
+
+
 def point_mul(k: int, pt: Point) -> Point:
+    """k * pt by double-and-add in Jacobian coordinates, one inversion at
+    the end (the affine chain's values, about 10x faster in Python)."""
     k %= N
-    acc = INFINITY
-    addend = pt
-    while k:
-        if k & 1:
-            acc = point_add(acc, addend)
-        addend = point_double(addend)
-        k >>= 1
-    return acc
+    if pt.inf or k == 0:
+        return INFINITY
+    X, Y, Z = 1, 1, 0
+    for i in range(k.bit_length() - 1, -1, -1):
+        X, Y, Z = _jac_double(X, Y, Z)
+        if (k >> i) & 1:
+            X, Y, Z = _jac_add_affine(X, Y, Z, pt)
+    if Z == 0:
+        return INFINITY
+    zi = pow(Z, -1, P)
+    zi2 = zi * zi % P
+    return Point(X * zi2 % P, Y * zi2 * zi % P)
 
 
 def point_neg(pt: Point) -> Point:

@@ -1,4 +1,5 @@
-"""Batched secp256k1 ECDSA verification in plain PyTorch (the verify half).
+"""Batched secp256k1 in plain PyTorch: ECDSA verify, ECDSA sign, k*G and
+BIP340 verify.
 
 Points are homogeneous projective (X:Y:Z) tuples of (B, 20) radix-2^13
 limb tensors; infinity is (0:1:0).  Point operations use the
@@ -11,6 +12,13 @@ and ``decompress`` (with ``field.inv_batch``, the ``xla`` prep) are the
 JAX package's XLA stages and stay plain PyTorch on the card;
 ``host_verify_batch`` is the exact-int oracle the verify path is held
 against.
+
+The sign half (``fixed_base_mul`` on the comb table, ``ecdsa_sign_kernel``
+with its four-candidate low-R rule, ``ecdsa_sign_simple_kernel``,
+``derive_pubkeys_kernel``) is an XLA program in the JAX package; here it
+is the plain version of the kernels S1 (``csrc/fixed_base.cu``) and S2
+(``csrc/ecdsa_sign.cu``).  ``schnorr_verify_kernel`` takes its u1*G +
+u2*P from the caller (the engines' main-path scan).
 """
 from __future__ import annotations
 
@@ -52,6 +60,24 @@ def _b3(a):
 
 # ---------------------------------------------------------------------------
 # Constant tables (host-side, exact integers)
+
+
+@functools.lru_cache(maxsize=1)
+def _comb_table() -> np.ndarray:
+    """(64, 16, 2, NLIMBS) int64: entry [j][v] = affine (x, y) of
+    v * 2^(4j) * G; the v = 0 entries are zeros, never read (a window
+    whose digit is 0 adds nothing)."""
+    table = np.zeros((NDIGITS, 16, 2, NLIMBS), dtype=np.int64)
+    base = ref.G
+    for j in range(NDIGITS):
+        acc = ref.INFINITY
+        for v in range(1, 16):
+            acc = ref.point_add(acc, base)
+            table[j, v, 0] = F.int_to_limbs(acc.x)
+            table[j, v, 1] = F.int_to_limbs(acc.y)
+        for _ in range(WINDOW):
+            base = ref.point_double(base)
+    return table
 
 
 @functools.lru_cache(maxsize=1)
@@ -141,6 +167,14 @@ def point_add(p1, p2):
     return (X3, Y3, Z3)
 
 
+def point_to_affine(p):
+    """(x, y) = (X / Z, Y / Z) by the batched inversion; infinity gives
+    (0, 0) (the inv(0) = 0 convention)."""
+    X, Y, Z = p
+    zi = F.inv_batch(FP, Z)
+    return _mul(X, zi), _mul(Y, zi)
+
+
 # ---------------------------------------------------------------------------
 # Scalar digits and window tables
 
@@ -189,8 +223,31 @@ def dual_mul(u1, u2, qx, qy):
     return acc
 
 
+def comb_add(acc, table, j: int, digit):
+    """Window j of the comb: acc + digit * 2^(4j) * G, the table's affine
+    entry added with Z = 1; rows whose digit is 0 keep acc (the kernel
+    skips them, with no point at infinity to add)."""
+    e = table[j, digit]
+    t = point_add(acc, (e[:, 0], e[:, 1], F.one(digit.shape, digit.device)))
+    keep = (digit == 0)[:, None]
+    return tuple(torch.where(keep, a, b) for a, b in zip(acc, t))
+
+
+def fixed_base_mul(k):
+    """k*G by the doubling-free comb: 64 mixed additions of the table's
+    v * 2^(4j) * G, one a window.  k: canonical limbs.  The JAX package
+    adds (0:1:0) for a digit 0 where this keeps the sum, so the projective
+    coordinates differ by a factor and the affine point is the same."""
+    table = F._const("comb", _comb_table(), k)
+    digits = digits4(k)
+    acc = point_inf((k.shape[0],), k.device)
+    for j in range(NDIGITS):
+        acc = comb_add(acc, table, j, digits[:, j])
+    return acc
+
+
 # ---------------------------------------------------------------------------
-# The square root, the parity flip and the inverse mod n
+# The square root, the parity flip and the inverses
 
 
 def _pow2k(a, k: int):
@@ -235,6 +292,27 @@ def decompress(qx, parity):
     y2 = _add(_mul(_sqr(qx), qx), F.from_const(7, qx.shape[:-1], qx.device))
     y = sqrt_p(y2)
     return flip_parity(y, parity), F.eq(FP, _sqr(y), y2)
+
+
+def inv_p(a):
+    """a^(p-2) mod p by libsecp256k1's addition chain (blocks of 1, 2, 22
+    and 223 ones): 255 squarings + 15 multiplies, the kernels' fp_inv
+    op for op."""
+    x2 = _mul(_pow2k(a, 1), a)
+    x3 = _mul(_pow2k(x2, 1), a)
+    x6 = _mul(_pow2k(x3, 3), x3)
+    x9 = _mul(_pow2k(x6, 3), x3)
+    x11 = _mul(_pow2k(x9, 2), x2)
+    x22 = _mul(_pow2k(x11, 11), x11)
+    x44 = _mul(_pow2k(x22, 22), x22)
+    x88 = _mul(_pow2k(x44, 44), x44)
+    x176 = _mul(_pow2k(x88, 88), x88)
+    x220 = _mul(_pow2k(x176, 44), x44)
+    x223 = _mul(_pow2k(x220, 3), x3)
+    t = _mul(_pow2k(x223, 23), x22)
+    t = _mul(_pow2k(t, 5), a)
+    t = _mul(_pow2k(t, 3), x2)
+    return _mul(_pow2k(t, 2), a)
 
 
 _N_LOW128 = N_INT & ((1 << 128) - 1)
@@ -298,3 +376,76 @@ def host_verify_batch(msg_hashes: np.ndarray, sigs64: np.ndarray,
             continue
         out[i] = ref.ecdsa_verify(bytes(msg_hashes[i]), r, s, q)
     return out
+
+
+GRIND_CANDIDATES = 4
+HALF_N = (N_INT - 1) // 2
+
+
+def _low_r(r_norm):
+    """low R: r < 2^255, bit 255 (bit 8 of limb 19) of canonical r clear."""
+    return ((r_norm[..., NLIMBS - 1] >> (255 - 13 * 19)) & 1) == 0
+
+
+def _sign_finish(z, d, r, k):
+    """s = k^-1 (z + r d) mod n, low-S normalized, for canonical r, k < n
+    and any 256-bit z; returns (s, s != 0)."""
+    s = F.normalize(FN, F.mul(FN, F.inv_batch(FN, k),
+                              F.add(FN, z, F.mul(FN, r, d))))
+    s_ok = F.nonzero(s)
+    high = ~F.lt_const(s, HALF_N + 1)
+    neg = F.normalize(FN, F.sub(FN, torch.zeros_like(s), s))
+    return F.select(high, neg, s), s_ok
+
+
+def ecdsa_sign_kernel(z, d, ks):
+    """Batched ECDSA sign with low-R grinding over C candidates.
+
+    z: (B, 20) hash limbs (the raw 256-bit value); d: (B, 20) secret keys
+    (< n); ks: (B, C, 20) canonical nonce candidates (host-made RFC6979
+    stream).  Takes the first candidate whose r is low and nonzero, else
+    candidate 0 (valid, high R); returns (r, s, ok, grind_ok)."""
+    B, C, _ = ks.shape
+    rx, _ = point_to_affine(fixed_base_mul(ks.reshape(B * C, NLIMBS)))
+    r_all = F.normalize(FN, F.normalize(FP, rx)).reshape(B, C, NLIMBS)
+    low = _low_r(r_all) & F.nonzero(r_all)
+    choice = torch.argmax(low.to(torch.int64), dim=1)   # first True, else 0
+    ar = torch.arange(B, device=z.device)
+    r, k = r_all[ar, choice], ks[ar, choice]
+    s, s_ok = _sign_finish(z, d, r, k)
+    return r, s, F.nonzero(r) & s_ok, low.any(dim=1)
+
+
+def ecdsa_sign_simple_kernel(z, d, k):
+    """One nonce, no grinding: r = x(k*G) mod n, s = k^-1 (z + r d) mod n,
+    low-S; returns (r, s, ok).  The bulk signer of the synthetic store."""
+    rx, _ = point_to_affine(fixed_base_mul(k))
+    r = F.normalize(FN, F.normalize(FP, rx))
+    s, s_ok = _sign_finish(z, d, r, k)
+    return r, s, F.nonzero(r) & s_ok
+
+
+def derive_pubkeys_kernel(d):
+    """d*G -> normalized affine (x, y) limbs."""
+    x, y = point_to_affine(fixed_base_mul(d))
+    return F.normalize(FP, x), F.normalize(FP, y)
+
+
+def schnorr_verify_kernel(e, rx, s, px, dual_mul_fn):
+    """Batched BIP340 verify for a precomputed challenge e (the raw
+    256-bit tagged hash): R = s*G - e*P with P lifted to even y, valid if
+    R is finite, has even y and x(R) = rx.  ``dual_mul_fn(u1, u2, qx,
+    qy)`` computes u1*G + u2*Q (the engines' main-path scan)."""
+    r_ok = F.lt_const(rx, P_INT)
+    s_ok = F.lt_const(s, N_INT)
+    p_ok = F.lt_const(px, P_INT)
+    py, on_curve = decompress(px, torch.zeros(px.shape[:-1], dtype=torch.int64,
+                                              device=px.device))
+    e_n = F.normalize(FN, e)
+    u = F.normalize(FN, F.sub(FN, torch.zeros_like(e_n), e_n))    # n - e
+    R = dual_mul_fn(F.normalize(FN, s), u, px, py)
+    not_inf = ~F.is_zero(FP, R[2])
+    x_aff, y_aff = point_to_affine(R)
+    even = (F.normalize(FP, y_aff)[..., 0] & 1) == 0
+    return r_ok & s_ok & p_ok & on_curve & not_inf & even \
+        & F.eq(FP, x_aff, rx)

@@ -18,19 +18,18 @@ corrupted one; all others are valid.  ``expected_sig_ok`` lists the
 verdicts in the verifier's item order (channel_announcement slots first,
 slot-major, then node_announcements, then channel_updates).
 
-Signing needs one k*G per signature and one d*G per node.  Those run as
-batched fixed-base multiplications through the port's own dual-mul path
-(u1 = k, u2 = 0, so K2 and K3 on the card, their plain versions on the
-CPU); the affine conversion and s = k^-1 (z + r d) use Python integers.
-A verify run that samples signatures against the exact-int host oracle
-guards against this circularity.
+Signing runs on the sign path's kernels, as the JAX package's synth
+signs with ecdsa_sign_simple_kernel: node keys d*G by S1
+(``engines.derive_pubkeys``), and each signature by S2 with one random
+nonce and no grinding (``engines.ecdsa_sign_simple``), low-S; their plain
+versions on the CPU.  A verify run that samples signatures against the
+exact-int host oracle guards against this circularity.
 """
 from __future__ import annotations
 
 import hashlib
 
 import numpy as np
-import torch
 
 from .. import device as D
 from ..crypto import field as F
@@ -55,50 +54,12 @@ def _rand_scalars(rng: np.random.Generator, n: int) -> list[int]:
     return [int.from_bytes(row.tobytes(), "big") % (N - 1) + 1 for row in raw]
 
 
-def mul_g(ks: list[int], device: torch.device) -> list[tuple[int, int]]:
-    """Affine k*G for each k in [1, n), as Python ints, through
-    dual_mul_pallas_fbj with u2 = 0 (the fixed-base half of the verify
-    scan)."""
-    out = []
-    gx = F.from_int_array([ref.G.x], device)
-    gy = F.from_int_array([ref.G.y], device)
-    for start in range(0, len(ks), SIGN_BUCKET):
-        chunk = ks[start:start + SIGN_BUCKET]
-        B = len(chunk)
-        u1 = F.from_int_array(chunk, device)
-        X, Y, Z = E.dual_mul_pallas_fbj(
-            u1, torch.zeros_like(u1), gx.expand(B, -1), gy.expand(B, -1))
-        xs, ys, zs = (_ints(F.normalize(F.FP, c)) for c in (X, Y, Z))
-        for x, y, z in zip(xs, ys, zs):
-            zi = pow(z, -1, P)
-            out.append((x * zi % P, y * zi % P))
-    return out
-
-
-def _ints(limbs: torch.Tensor) -> list[int]:
-    raw = F.to_bytes_be(limbs)
-    return [int.from_bytes(row.tobytes(), "big") for row in raw]
-
-
 def sign_bulk(hashes: list[bytes], keys: list[int], rng,
               device) -> np.ndarray:
-    """ECDSA with random nonces from `rng`, low-S normalized: (N, 64)."""
+    """ECDSA with random nonces from `rng` (no grinding), low-S: (N, 64)."""
     ks = _rand_scalars(rng, len(hashes))
-    rs = mul_g(ks, device)
-    out = np.empty((len(hashes), 64), np.uint8)
-    for i, (h, d, k, (rx, _)) in enumerate(zip(hashes, keys, ks, rs)):
-        r = rx % N
-        s = pow(k, -1, N) * (int.from_bytes(h, "big") + r * d) % N
-        assert r and s, "degenerate nonce"
-        if s > N // 2:
-            s = N - s
-        out[i] = np.frombuffer(r.to_bytes(32, "big") + s.to_bytes(32, "big"),
-                               np.uint8)
-    return out
-
-
-def _compress(x: int, y: int) -> bytes:
-    return bytes([2 + (y & 1)]) + x.to_bytes(32, "big")
+    z = np.frombuffer(b"".join(hashes), np.uint8).reshape(-1, 32)
+    return E.ecdsa_sign_simple(z, keys, ks, SIGN_BUCKET, device)
 
 
 def _off_curve_key(rng) -> bytes:
@@ -123,7 +84,8 @@ def make_network_store(path: str, n_channels: int, n_nodes: int | None = None,
     rng = np.random.default_rng(seed)
     n_nodes = n_nodes or max(2, n_channels // 8)
     seckeys = _rand_scalars(rng, n_nodes)
-    pub = [_compress(x, y) for x, y in mul_g(seckeys, dev)]
+    pub = [bytes(p) for p in E.derive_pubkeys(
+        F.from_int_array(seckeys).numpy(), SIGN_BUCKET, dev)]
     special = rng.permutation(n_nodes)[:off_curve + bad_tag + oversized]
     bad_nodes = np.zeros(n_nodes, bool)
     for i in special[:off_curve]:

@@ -423,7 +423,7 @@ def test_build_all_compiles_each_source_once(monkeypatch, tmp_path):
     assert all("Used 42 registers" in r and "spill" in r
                for r in reports.values())
     lines = calls.read_text().splitlines()
-    assert len(lines) == len(_build.SOURCES) == 6
+    assert len(lines) == len(_build.SOURCES) == 8
     assert all("arch=compute_90a,code=sm_90a" in ln for ln in lines)
     assert _build.build_all() == reports          # nothing stale: no call
-    assert len(calls.read_text().splitlines()) == 6
+    assert len(calls.read_text().splitlines()) == 8

@@ -291,6 +291,109 @@ def test_dual_mul_planes_kernel_full_bucket_ragged(cuda):
     _same_point(H.dual_mul_planes(qs, gs), H.dual_mul_planes_plain(qs, gs))
 
 
+# ---------------------------------------------------------------------------
+# S1 and S2, the sign path's kernels
+
+
+def _sign_key(tag: bytes) -> int:
+    import hashlib
+    return int.from_bytes(hashlib.sha256(tag).digest(), "big") % \
+        (ref.N - 1) + 1
+
+
+def _sign_inputs(gen, n, C, dev):
+    """z, d (8, n) and ks (C, 8, n) words: row 0 the hash sha256(b"h14")
+    with key from b"d14" and its RFC6979 candidates (no low R among the
+    four), rows 1-2 z = 2^256 - 1 and z = n + 5, row 3 candidates k = 1,
+    n - 1, 2^128 and 2^252 (digits of 0), the rest random."""
+    import hashlib
+
+    from lightning_tpu_torch.crypto import engines as E
+
+    def rnd(m):
+        return int.from_bytes(gen.bytes(32), "big") % m
+
+    zs = [rnd(2**256) for _ in range(n)]
+    ds = [rnd(ref.N - 1) + 1 for _ in range(n)]
+    ks = [[rnd(ref.N - 1) + 1 for _ in range(4)] for _ in range(n)]
+    h14 = hashlib.sha256(b"h14").digest()
+    zs[0], ds[0] = int.from_bytes(h14, "big"), _sign_key(b"d14")
+    ks[0] = E.rfc6979_candidates(h14, ds[0])
+    zs[1], zs[2] = 2**256 - 1, ref.N + 5
+    ks[3] = [1, ref.N - 1, 2**128, 2**252]
+
+    def words(vals):
+        return F.words_from_be_bytes(F.ints_to_be_bytes(vals), dev)
+
+    return (words(zs), words(ds),
+            torch.stack([words([k[c] for k in ks]) for c in range(C)]))
+
+
+def _same_sign(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("n", [B, FULL], ids=["small", "full"])
+def test_fixed_base_kernel_matches_plain(cuda, n):
+    """S1 against its plain version; the first rows are k = 0, 1, 2, n - 1,
+    n, 2^256 - 1, 2^128 and 2^252 (infinity, and digits of 0)."""
+    gen = np.random.default_rng(80)
+    ks = [int.from_bytes(gen.bytes(32), "big") for _ in range(n)]
+    ks[:8] = [0, 1, 2, ref.N - 1, ref.N, 2**256 - 1, 2**128, 2**252]
+    k8 = F.words_from_be_bytes(F.ints_to_be_bytes(ks), cuda)
+    before = H.fixed_base_affine.launches
+    got = H.fixed_base_affine(k8)
+    assert H.fixed_base_affine.launches == before + 1
+    _same_sign(got, H.fixed_base_affine_plain(k8))
+    x = F.words_to_be_bytes(got[0])
+    assert int.from_bytes(x[3].tobytes(), "big") == ref.G.x
+    assert not x[0].any() and not x[4].any()
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("n", [B, FULL], ids=["small", "full"])
+def test_ecdsa_sign_kernel_matches_plain(cuda, C, n):
+    gen = np.random.default_rng(81 + C)
+    z8, d8, ks8 = _sign_inputs(gen, n, C, cuda)
+    before = H.ecdsa_sign.launches
+    got = H.ecdsa_sign(z8, d8, ks8)
+    assert H.ecdsa_sign.launches == before + 1
+    want = H.ecdsa_sign_plain(z8, d8, ks8)
+    _same_sign(got, want)
+    assert bool(got[2].all())
+    if C == 4:
+        assert not bool(got[3][0])                  # h14: candidate 0
+
+
+def test_sign_entry_points_on_card_match_oracle(cuda):
+    """ecdsa_sign_batch, derive_pubkeys and schnorr_verify_batch on the
+    card against the exact-int rule and oracle, each through its kernels."""
+    import hashlib
+
+    from lightning_tpu_torch.crypto import engines as E
+
+    tags = [b"h%d" % i for i in range(8, 40)]
+    keys = [_sign_key(b"d%d" % i) for i in range(8, 40)]
+    hashes = np.stack([np.frombuffer(hashlib.sha256(t).digest(), np.uint8)
+                       for t in tags])
+    H.reset_launches()
+    assert np.array_equal(E.ecdsa_sign_batch(hashes, keys, device="cuda"),
+                          E.host_sign_grind_batch(hashes, keys))
+    pubs = E.derive_pubkeys(F.from_int_array(keys).numpy(), device="cuda")
+    assert [bytes(p) for p in pubs] == \
+        [ref.pubkey_serialize(ref.pubkey_create(k)) for k in keys]
+    sigs = np.stack([np.frombuffer(ref.schnorr_sign(bytes(h), k), np.uint8)
+                     for h, k in zip(hashes, keys)])
+    sigs[5, 40] ^= 1
+    xonly = np.ascontiguousarray(pubs[:, 1:])
+    got = E.schnorr_verify_batch(hashes, sigs, xonly, device="cuda")
+    assert got.tolist() == [i != 5 for i in range(len(keys))]
+    counts = H.launch_counts()
+    assert counts["ecdsa_sign"] == counts["fixed_base_affine"] == 1
+    assert counts["build_tables"] == counts["glv_scan"] == 1
+
+
 # The kernels each engine launches once a bucket on the card (K1 is the
 # "+pp" prep's).
 ENGINE_KERNELS = {

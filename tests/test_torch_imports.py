@@ -20,6 +20,7 @@ from lightning_tpu_torch import device as D
 from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import hopper_secp as H
+from lightning_tpu_torch.daemon import hsmd as TH
 from lightning_tpu_torch.gossip import store as TST
 from lightning_tpu_torch.gossip import verify as TV
 
@@ -49,7 +50,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for mod in ("lightning_tpu_torch.gossip.verify",
                 "lightning_tpu_torch.crypto.hopper_secp",
                 "lightning_tpu_torch.crypto.engines",
-                "lightning_tpu_torch.convert"):
+                "lightning_tpu_torch.convert",
+                "lightning_tpu_torch.btc.keys",
+                "lightning_tpu_torch.btc.script",
+                "lightning_tpu_torch.btc.tx",
+                "lightning_tpu_torch.channel.commitment",
+                "lightning_tpu_torch.daemon.hsmd"):
         assert mod in got["modules"]
 
 
@@ -68,6 +74,17 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         E.ecdsa_verify_batch(*args)
     assert E.ecdsa_verify_batch(*(a[:0] for a in args),
                                 device="cpu").shape == (0,)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.ecdsa_sign_batch(one, [1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.derive_pubkeys(np.ones((1, 20), np.int64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.schnorr_verify_batch(one, args[1], one)
+    hsm = TH.Hsm(b"\x01" * 32)
+    client = hsm.client(TH.CAP_MASTER, b"\x02" * 33, dbid=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hsm.sign_htlc_batch(client, [bytes(32)],
+                            hsm.per_commitment_point(client, 0))
     assert D.resolve("cpu") == torch.device("cpu")
 
 
@@ -96,5 +113,6 @@ def test_launch_counters_start_at_zero_and_ignore_plain_calls():
     H.verify_prep_core(one, one)
     assert H.launch_counts() == {"verify_prep_core": 0, "build_tables": 0,
                                  "glv_scan": 0, "glv_scan2": 0,
-                                 "dual_mul_v2": 0, "dual_mul_planes": 0}
+                                 "dual_mul_v2": 0, "dual_mul_planes": 0,
+                                 "fixed_base_affine": 0, "ecdsa_sign": 0}
     assert np.array_equal(F.to_bytes_be(one)[0, -1:], [1])
