@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--seed 7] [--channels 100000] [--nodes 12500]
                           [--bucket 65536] [--mainnet]
+                          [--ingest-channels 10000] [--ingest-nodes 1250]
+                          [--ingest-runs 1]
 
 Phases, each fatal on failure:
 
@@ -56,10 +58,34 @@ Phases, each fatal on failure:
    a bucket of keys (S1), a 1,024-row sample against ref.pubkey_create;
    schnorr_verify_batch (K2 + K3) on 1,024 signatures and 64 flipped
    ones, exact.
+6. live gossip ingest at the width of a regtest 10k-channel node: a
+   synth store of 10,000 channels and 1,250 nodes (61,250 signatures,
+   faults seeded as in phase 3) fed message by message through
+   gossip/ingest.py's GossipIngest on the card, as gossipd feeds it
+   (wait_capacity, then submit; the reference's flush size, window and
+   watermarks), with 100 exact duplicates, about 5 % of the updates and
+   node announcements before their channel, and 20 updates re-signed
+   with an older timestamp fed after a drain (the gap wave: related
+   messages the backlog's hard cap apart); then the same store to a new
+   ingest in BOLT #7's sync order (each channel_announcement, its
+   channel_updates, its nodes' announcements); each wave with the launch
+   counters set to 0 just before and read just after.  Each wave's
+   stats, state tables, pending maps and stored multiset must equal a
+   sequential model of the ingest's rules given the live run's sheds
+   (the BOLT #7 wave's pending count plus the updates held live for a
+   channel still queued); K1-K3 launch once a flush; each written store
+   replays all true on the card and its gossmap has the model's
+   channels and nodes; a 1,024-message sample of the gap wave's store
+   agrees with the exact-int oracle; a copy of it torn mid-record with 8
+   corrupted timestamps recovers with the torn record cut and the 8
+   requalified by a re-check on the card.  With --ingest-runs N the
+   phase runs N times, each after a reading of K3, and prints the
+   spread.
 
 Prints one {"kernels": [...]} line (each verify kernel's launches counted
 on the replay of the first engine that runs it, named as "path"; S1's and
-S2's on phase 5's sign path), the nvidia-smi name and power limit,
+S2's on phase 5's sign path; each kernel's launches in phase 6's waves
+as "live_ingest_launches"), the nvidia-smi name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when there is no CUDA device or no port package beside it.
 """
@@ -577,6 +603,526 @@ def sign_path(args, gen, dev, card, torch, F, E, H, ref):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: live ingest
+
+
+def ingest_messages(wire, path, info):
+    """The synth store's messages with their parsed forms and verdicts:
+    (raws, parsed, valid, ca_of) in store order (CAs, CUs channel-major,
+    NAs); ca_of[i] is the channel index of message i (-1 for an NA)."""
+    from lightning_tpu_torch.gossip import store as ST
+
+    idx = ST.load_store(path)
+    raws = [idx.message(i) for i in range(len(idx))]
+    parsed = [wire.parse_gossip(m) for m in raws]
+    n, nn = info["channels"], info["nodes"]
+    exp = info["expected_sig_ok"]
+    valid = np.concatenate([info["expected_ca_valid"],
+                            exp[4 * n + nn:], exp[4 * n:4 * n + nn]])
+    ca_of = np.concatenate([np.arange(n), np.arange(2 * n) // 2,
+                            np.full(nn, -1)])
+    return raws, parsed, valid, ca_of
+
+
+def ingest_feed(parsed, valid, ca_of, gen, gap, n_dup=100, early=0.05):
+    """The order the live phase submits the store's messages in, as
+    indices into them.  Step t submits channel_announcement t, then the
+    channel_updates of channel t - `gap` and the node_announcements whose
+    node's first valid channel is t - `gap`, so every step up to n +
+    `gap` holds at least 2 signatures.  A seeded `early` share of the
+    updates and node announcements comes before its channel instead and
+    waits in the pending maps; `n_dup` exact duplicates of messages
+    through before step n - `gap` come `gap` to 2 * `gap` steps after.
+    With `gap` at least the backlog's hard cap (in signatures), no
+    message meets a related one still in flight, so a sequential model
+    of the ingest predicts every count."""
+    n = int((ca_of >= 0).sum() // 3)
+    assert n > gap, "the gap must be shorter than the channel count"
+    first_any, first_valid = {}, {}
+    for c in range(n):
+        for nid in (parsed[c].node_id_1, parsed[c].node_id_2):
+            first_any.setdefault(nid, c)
+            if valid[c]:
+                first_valid.setdefault(nid, c)
+    keys, ready = [], []
+    for i, p in enumerate(parsed):
+        if i < n:
+            keys.append((i, 0, i))
+            ready.append(i)
+            continue
+        if i < 3 * n:
+            before = through = int(ca_of[i])
+        else:
+            before = first_any.get(p.node_id)
+            through = first_valid.get(p.node_id, before or 0)
+        ready.append(through + gap)
+        if before is not None and gen.random() < early:
+            step = int(gen.integers(max(0, before - gap), before)) \
+                if before else -1
+            keys.append((step, 2, i))
+        else:
+            keys.append((through + gap, 1, i))
+    ready = np.array(ready)
+    for i in gen.choice(np.nonzero(ready < n - gap)[0], n_dup,
+                        replace=False):
+        keys.append((int(ready[i]) + gap + int(gen.integers(0, gap)), 3,
+                     int(i)))
+    return [k[2] for k in sorted(keys)]
+
+
+class IngestModel:
+    """The ingest's rules (gossip/ingest.py) applied one message at a
+    time, each verified and applied before the next, with the seeded
+    verdicts for signatures.  `sheds` holds the (message bytes, n-th
+    submission of those bytes) pairs the live run shed: whether the
+    backlog had room depends on timing, everything else follows."""
+
+    def __init__(self, wire, ingest, valid: dict, sheds: set):
+        self.W, self.I, self.valid, self.sheds = wire, ingest, valid, sheds
+        self.seen: dict = {}
+        self.channels, self.updates, self.nodes = {}, {}, {}
+        self.channeled: set = set()
+        self.pending_updates: dict = {}
+        self.pending_nodes: dict = {}
+        self.tokens: dict = {}
+        self.dropped: dict = {}
+        self.accepted: list = []
+        self.batched_sigs = 0
+
+    def drop(self, reason):
+        self.dropped[reason] = self.dropped.get(reason, 0) + 1
+
+    def submit(self, raw: bytes):
+        W, I = self.W, self.I
+        k = self.seen.get(raw, 0)
+        self.seen[raw] = k + 1
+        shed = (raw, k) in self.sheds
+        p = W.parse_gossip(raw)
+        if p.TYPE == W.MSG_CHANNEL_ANNOUNCEMENT:
+            if p.short_channel_id in self.channels:
+                return self.drop(I.R_DUP)
+        elif p.TYPE == W.MSG_CHANNEL_UPDATE:
+            key = (p.short_channel_id, p.direction)
+            if self.updates.get(key, -1) >= p.timestamp:
+                return self.drop(I.R_STALE)
+            if p.short_channel_id not in self.channels:
+                held = self.pending_updates.setdefault(p.short_channel_id,
+                                                       {})
+                prev = held.get(p.direction)
+                if prev is None:
+                    if shed:                          # the pending cap
+                        return self.drop(I.R_SHED)
+                    held[p.direction] = raw
+                elif W.parse_gossip(prev).timestamp < p.timestamp:
+                    held[p.direction] = raw
+                return self.drop(I.R_NO_CHANNEL)
+        elif self.nodes.get(p.node_id, -1) >= p.timestamp:
+            return self.drop(I.R_STALE)
+        if shed:
+            return self.drop(I.R_SHED)
+        if p.TYPE == W.MSG_CHANNEL_UPDATE:
+            key = (p.short_channel_id, p.direction)
+            used = self.tokens.get(key, 0)
+            if used >= I.RATELIMIT_BURST:
+                return self.drop(I.R_RATELIMIT)
+            self.tokens[key] = used + 1
+        self.batched_sigs += 4 if p.TYPE == W.MSG_CHANNEL_ANNOUNCEMENT else 1
+        if not self.valid[raw]:
+            return self.drop(I.R_BADSIG)
+        self.apply(raw, p)
+
+    def apply(self, raw, p):
+        W, I = self.W, self.I
+        if p.TYPE == W.MSG_CHANNEL_ANNOUNCEMENT:
+            self.channels[p.short_channel_id] = (p.node_id_1, p.node_id_2)
+            self.channeled.update((p.node_id_1, p.node_id_2))
+            self.accepted.append(raw)
+            for q in self.pending_updates.pop(p.short_channel_id,
+                                              {}).values():
+                self.submit(q)
+            for nid in (p.node_id_1, p.node_id_2):
+                q = self.pending_nodes.pop(nid, None)
+                if q is not None:
+                    self.submit(q)
+        elif p.TYPE == W.MSG_CHANNEL_UPDATE:
+            key = (p.short_channel_id, p.direction)
+            if self.updates.get(key, -1) >= p.timestamp:
+                return self.drop(I.R_STALE)
+            self.updates[key] = p.timestamp
+            self.accepted.append(raw)
+        elif p.node_id not in self.channeled:
+            prev = self.pending_nodes.get(p.node_id)
+            if prev is None or \
+                    W.parse_gossip(prev).timestamp < p.timestamp:
+                self.pending_nodes[p.node_id] = raw
+            self.drop(I.R_NO_CHANNEL)
+        elif self.nodes.get(p.node_id, -1) >= p.timestamp:
+            self.drop(I.R_STALE)
+        else:
+            self.nodes[p.node_id] = p.timestamp
+            self.accepted.append(raw)
+
+
+def stale_updates(wire, ref, parsed, ca_of, info, pubs, gen, n):
+    """`n` channel_updates re-signed with a timestamp 1,000 s older than
+    the store's, on channels whose two nodes have their derived keys."""
+    import dataclasses
+
+    key_of = {bytes(pk): d for pk, d in zip(pubs, info["seckeys"])}
+    out = []
+    for i in gen.permutation(np.nonzero(ca_of >= 0)[0]):
+        p = parsed[i]
+        if p.TYPE != wire.MSG_CHANNEL_UPDATE:
+            continue
+        ca = parsed[ca_of[i]]
+        signer = (ca.node_id_1, ca.node_id_2)[p.direction]
+        if ca.node_id_1 not in key_of or ca.node_id_2 not in key_of:
+            continue
+        m = bytearray(dataclasses.replace(
+            p, timestamp=p.timestamp - 1000).serialize())
+        r, s = ref.ecdsa_sign(ref.sha256d(bytes(m[wire.CU_SIGNED_OFFSET:])),
+                              key_of[signer])
+        m[wire.CU_SIG_OFFSET:wire.CU_SIG_OFFSET + 64] = \
+            r.to_bytes(32, "big") + s.to_bytes(32, "big")
+        out.append(bytes(m))
+        if len(out) == n:
+            return out
+    raise AssertionError("too few channels for the stale updates")
+
+
+def bolt7_feed(parsed, ca_of):
+    """The store's messages in BOLT #7's sync order, as indices: each
+    channel_announcement, then its channel_updates, then the
+    node_announcements of its nodes not sent before (the node
+    announcements of nodes in no channel last)."""
+    n = int((ca_of >= 0).sum() // 3)
+    na_of = {parsed[i].node_id: i for i in range(3 * n, len(parsed))}
+    order = []
+    for c in range(n):
+        order += [c, n + 2 * c, n + 2 * c + 1]
+        for nid in (parsed[c].node_id_1, parsed[c].node_id_2):
+            i = na_of.pop(nid, None)
+            if i is not None:
+                order.append(i)
+    return order + sorted(na_of.values())
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else 0.0
+
+
+def drive_ingest(I, V, H, torch, dev, out, high_wm, waves):
+    """Feeds each wave of raw messages through one GossipIngest on `dev`
+    as gossipd feeds it (wait_capacity, then submit), with a drain after
+    each wave, then closes it.  Times every flush, the verify_items inside
+    it, each kernel launch inside it (CUDA events on its stream) and each
+    submit; keeps every shed as (message bytes, n-th submission of them)
+    and the launch counts of the run (set to 0 just before)."""
+    import asyncio
+    import collections
+
+    r = {"sheds": set(), "flushes": [], "verify": [], "waited": [],
+         "submit": {True: [], False: []}, "spans": [],
+         "seen": collections.Counter(), "kernel_ms": collections.Counter()}
+    verify_items, launch = V.verify_items, H._launch
+    kernel_events = []
+
+    def timed_verify(items, bucket, device=None):
+        t = time.perf_counter()
+        ok = verify_items(items, bucket, device=device)
+        r["verify"].append(time.perf_counter() - t)
+        return ok
+
+    def timed_launch(name, *tensors, B, entry=None):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        launch(name, *tensors, B=B, entry=entry)
+        b.record()
+        kernel_events.append((name, a, b))
+
+    async def run():
+        ing = I.GossipIngest(out, device=dev, high_wm=high_wm,
+                             low_wm=high_wm // 2)
+        submit, flush = ing.submit, ing.flush
+        seen = r["seen"]
+
+        async def counted_submit(raw, source=None):
+            k = seen[raw]
+            seen[raw] += 1
+            before = ing.stats.dropped.get(I.R_SHED, 0)
+            await submit(raw, source)
+            if ing.stats.dropped.get(I.R_SHED, 0) > before:
+                r["sheds"].add((raw, k))
+
+        async def timed_flush():
+            n = ing._queued_sigs
+            t = time.perf_counter()
+            await flush()
+            if n:
+                r["flushes"].append((n, time.perf_counter() - t))
+
+        ing.submit, ing.flush = counted_submit, timed_flush
+        ing.start()
+        for wave in waves:
+            t = time.perf_counter()
+            for raw in wave:
+                r["waited"].append(await ing.wait_capacity())
+                busy = ing._flushing
+                ts = time.perf_counter()
+                await ing.submit(raw, "peer")
+                r["submit"][busy].append(time.perf_counter() - ts)
+            await ing.drain()
+            r["spans"].append(time.perf_counter() - t)
+        await ing.close()
+        return ing
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    H.reset_launches()
+    V.verify_items = timed_verify
+    if dev.type == "cuda":
+        H._launch = timed_launch
+    try:
+        r["ing"] = asyncio.run(run())
+    finally:
+        V.verify_items, H._launch = verify_items, launch
+    r["launches"] = H.launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        for name, a, b in kernel_events:
+            r["kernel_ms"][name] += a.elapsed_time(b)
+    return r
+
+
+def report_ingest(tag, r, wire, card, n_msgs, n_sigs):
+    """Logs a live run's flushes, stalls, waits and sheds; returns its
+    end-to-end figures (of the first wave)."""
+    import collections
+
+    st, ing = r["ing"].stats, r["ing"]
+    fl = np.array([f[1] for f in r["flushes"]])
+    span = r["spans"][0]
+    out = {"sig_s": n_sigs / span, "msg_s": n_msgs / span,
+           "p50_ms": pct(fl, 50) * 1e3, "p99_ms": pct(fl, 99) * 1e3,
+           "flushes": st.flushes, "sheds": len(r["sheds"])}
+    log(f"live ingest, {tag}, on {card}: {st.flushes} flushes, "
+        f"{st.batched_sigs} signatures verified, "
+        f"{st.batched_sigs / max(1, st.flushes):.1f} a flush "
+        f"(max {st.max_batch}); flush wall p50 {out['p50_ms']:.1f} ms, "
+        f"p99 {out['p99_ms']:.1f} ms, max {fl.max() * 1e3:.1f} ms; "
+        f"verify_items {sum(r['verify']) / fl.sum() * 100:.1f} % of flush "
+        f"time; end to end {out['sig_s']:.0f} sig/s, {out['msg_s']:.0f} "
+        f"msg/s ({span:.2f} s from the first submit to drain)"
+        + "".join(f", then {s:.2f} s" for s in r["spans"][1:]))
+    for busy, name in ((True, "during a flush"), (False, "otherwise")):
+        xs = np.array(r["submit"][busy]) * 1e6
+        log(f"  submit() {name}: {len(xs)} calls, p50 {pct(xs, 50):.1f} "
+            f"us, p99 {pct(xs, 99):.1f} us, max {xs.max(initial=0):.1f} us")
+    sizes = np.array([f[0] for f in r["flushes"]])
+    small = sizes < ing.flush_size
+    log(f"  flushes below flush_size ({ing.flush_size} signatures): "
+        f"{int(small.sum())}, {sizes[small].mean() if small.any() else 0:.1f}"
+        f" signatures and {fl[small].mean() * 1e3 if small.any() else 0:.1f}"
+        f" ms on average; the others: {int((~small).sum())}, "
+        f"{sizes[~small].mean() if (~small).any() else 0:.1f} signatures "
+        f"and {fl[~small].mean() * 1e3 if (~small).any() else 0:.1f} ms")
+    k_all = sum(r["kernel_ms"].values())
+    log(f"  kernels inside the flushes (CUDA events): "
+        f"{json.dumps({k: round(v, 4) for k, v in r['kernel_ms'].items()})}"
+        f" ms, {k_all:.3f} ms in all, {k_all / 1e3 / fl.sum() * 100:.3f} % "
+        f"of flush wall")
+    w = np.array(r["waited"])
+    names = {wire.MSG_CHANNEL_ANNOUNCEMENT: "CA",
+             wire.MSG_CHANNEL_UPDATE: "CU", wire.MSG_NODE_ANNOUNCEMENT: "NA"}
+    kinds = collections.Counter(   # a message's first submission, or later
+        (names[wire.msg_type(raw)], "again" if k else "first")
+        for raw, k in r["sheds"])
+    log(f"  wait_capacity: {int((w > 0).sum())} waits, {w.sum():.2f} s in "
+        f"all; {len(r['sheds'])} sheds "
+        f"{json.dumps({f'{t}:{how}': n for (t, how), n in kinds.items()})};"
+        f" stats {json.dumps(st.dropped)}, accepted {st.accepted}; "
+        f"launches {json.dumps(r['launches'])}")
+    return out
+
+
+def check_ingest(tag, r, model, no_channel_extra, dev, I):
+    """The live run's stats, state tables and pending maps against the
+    sequential model, and one launch of K1-K3 a flush."""
+    ing, st = r["ing"], r["ing"].stats
+    dropped = dict(model.dropped)
+    if no_channel_extra:
+        dropped[I.R_NO_CHANNEL] = dropped.get(I.R_NO_CHANNEL, 0) + \
+            no_channel_extra
+    want = {"accepted": len(model.accepted), "dropped": dropped,
+            "batched_sigs": model.batched_sigs}
+    got = {"accepted": st.accepted, "dropped": st.dropped,
+           "batched_sigs": st.batched_sigs}
+    log(f"  model ({tag}): {json.dumps(want)}")
+    assert got == want, f"{tag}: ingest stats off the model"
+    assert (ing.channels, ing.updates, ing.nodes) == (
+        model.channels, model.updates, model.nodes), f"{tag}: state tables"
+    assert {s: sorted(d) for s, d in ing.pending_updates.items()} == {
+        s: sorted(d) for s, d in model.pending_updates.items() if d}
+    assert sorted(ing.pending_nodes) == sorted(model.pending_nodes)
+    if dev.type == "cuda":
+        assert r["launches"] == {
+            k: st.flushes * (k in ENGINE_KERNELS[MAIN])
+            for k in r["launches"]}, f"{tag}: live ingest launch counts"
+
+
+def check_store(tag, path, model, V, ST, GM, bucket, dev):
+    """The written store: its messages are the model's accepted multiset
+    and replay all true on the card; returns its index, messages and
+    gossmap."""
+    import collections
+
+    idx = ST.load_store(path)
+    msgs = [idx.message(i) for i in range(len(idx))]
+    assert collections.Counter(msgs) == collections.Counter(
+        model.accepted), f"{tag}: stored multiset"
+    res = V.verify_store(idx, bucket, device=dev)
+    assert res.sig_ok.all() and idx.check_crcs().all(), f"{tag}: replay"
+    g = GM.from_store(idx)
+    nodes = {n for pair in model.channels.values() for n in pair}
+    log(f"  store ({tag}): {len(idx)} records, replay "
+        f"{int(res.sig_ok.sum())}/{res.n_sigs} true, multiset equal to "
+        f"the model's; gossmap {g.n_channels} channels, {g.n_nodes} nodes")
+    assert (g.n_channels, g.n_nodes) == (len(model.channels), len(nodes))
+    return idx, msgs
+
+
+def live_ingest(args, gen, dev, card, torch, F, E, H, S, ref, tmpdir,
+                high_wm=None):
+    """Phase 6; returns K1-K3's launch counts of the live runs and each
+    wave's end-to-end figures."""
+    import shutil
+
+    from lightning_tpu_torch.gossip import gossmap as GM
+    from lightning_tpu_torch.gossip import ingest as I
+    from lightning_tpu_torch.gossip import store as ST
+    from lightning_tpu_torch.gossip import synth
+    from lightning_tpu_torch.gossip import verify as V
+    from lightning_tpu_torch.gossip import wire
+
+    src = os.path.join(tmpdir, "ingest_src.gs")
+    t0 = time.perf_counter()
+    info = synth.make_network_store(
+        src, args.ingest_channels, args.ingest_nodes, seed=args.seed + 6,
+        device=dev, n_corrupt=8, off_curve=1, bad_tag=1, oversized=3)
+    raws, parsed, valid, ca_of = ingest_messages(wire, src, info)
+    high_wm = high_wm or I.INGEST_HIGH_WM
+    gap = high_wm + 2 * (high_wm // 4)          # the backlog's hard cap
+    feed = [raws[i] for i in ingest_feed(parsed, valid, ca_of, gen, gap)]
+    feed_b = [raws[i] for i in bolt7_feed(parsed, ca_of)]
+    pubs = E.derive_pubkeys(F.from_int_array(info["seckeys"]).numpy(),
+                            args.bucket, device=dev)
+    stale = stale_updates(wire, ref, parsed, ca_of, info, pubs, gen, 20)
+    verdict = dict(zip(raws, valid.tolist()))
+    verdict.update((m, True) for m in stale)
+
+    def sigs(ms):
+        return sum(4 if wire.msg_type(m) == wire.MSG_CHANNEL_ANNOUNCEMENT
+                   else 1 for m in ms)
+
+    log(f"live ingest: {len(raws)} messages ({info['channels']} CA, "
+        f"{info['channel_updates']} CU, {info['nodes']} NA; "
+        f"{info['sigs']} signatures) made in "
+        f"{time.perf_counter() - t0:.1f} s; the gap wave feeds "
+        f"{len(feed)} messages, {sigs(feed)} signatures (100 duplicates, "
+        f"gap {gap} steps), then {len(stale)} stale updates; the BOLT #7 "
+        f"wave feeds the store's {len(feed_b)} in sync order to a new "
+        f"ingest")
+
+    # the gap wave: related messages a hard cap apart, so the sequential
+    # model predicts every count given the live sheds
+    out = os.path.join(tmpdir, "ingest.gs")
+    ra = drive_ingest(I, V, H, torch, dev, out, high_wm, (feed, stale))
+    figures = {"gap": report_ingest("gap wave", ra, wire, card, len(feed),
+                                    sigs(feed))}
+    model = IngestModel(wire, I, verdict, ra["sheds"])
+    for raw in feed + stale:
+        model.submit(raw)
+    check_ingest("gap wave", ra, model, 0, dev, I)
+    st = ra["ing"].stats
+    assert all(st.dropped.get(r, 0) > 0 for r in (
+        I.R_DUP, I.R_STALE, I.R_NO_CHANNEL, I.R_BADSIG)), "a path unused"
+    idx, msgs = check_store("gap wave", out, model, V, ST, GM, args.bucket,
+                            dev)
+    rows = gen.choice(len(msgs), min(1024, len(msgs)), replace=False)
+    sample = [wire.parse_gossip(msgs[i]) for i in rows]
+    items = V.message_items(sample, lambda s, d: model.channels[s][d])
+    z = np.stack([np.frombuffer(ref.sha256d(p.signed_region()), np.uint8)
+                  for p in sample])[items.row_index()]
+    oracle = S.host_verify_batch(z, items.sigs, items.pubkeys)
+    log(f"  oracle: {int(oracle.sum())}/{len(oracle)} signatures of "
+        f"{len(rows)} stored messages true")
+    assert oracle.all(), "oracle sample"
+
+    # the BOLT #7 wave: each channel's updates right behind it, so they
+    # meet it still queued or in flight and wait in the pending map.  The
+    # model applies each message before the next, so it holds none of
+    # them: a channel_update held live and resubmitted counts one more
+    # pending_no_channel, and a shed at either submission is a shed at
+    # the model's one
+    out_b = os.path.join(tmpdir, "ingest_bolt7.gs")
+    rb = drive_ingest(I, V, H, torch, dev, out_b, high_wm, (feed_b,))
+    figures["bolt7"] = report_ingest("BOLT #7 wave", rb, wire, card,
+                                     len(feed_b), sigs(feed_b))
+    cu = wire.MSG_CHANNEL_UPDATE
+    model_b = IngestModel(wire, I, verdict, {
+        (raw, 0 if wire.msg_type(raw) == cu else k)
+        for raw, k in rb["sheds"]})
+    for raw in feed_b:
+        model_b.submit(raw)
+    held = sum(1 for raw, k in rb["seen"].items()
+               if k > 1 and wire.msg_type(raw) == cu)
+    log(f"  BOLT #7 wave: {held} channel_updates held for their channel "
+        f"and resubmitted")
+    check_ingest("BOLT #7 wave", rb, model_b, held, dev, I)
+    check_store("BOLT #7 wave", out_b, model_b, V, ST, GM, args.bucket, dev)
+
+    # recovery: a copy of the gap wave's store torn mid-record, 8
+    # timestamps corrupted
+    cp = os.path.join(tmpdir, "ingest_torn.gs")
+    shutil.copyfile(out, cp)
+    bad = np.sort(gen.choice(len(idx) - 1, 8, replace=False))
+    last = int(idx.offsets[-1]) - 12            # the torn record's start
+    torn = (12 + int(idx.lengths[-1])) // 2
+    with open(cp, "r+b") as f:
+        for i in bad:
+            f.seek(int(idx.offsets[i]) - 4)
+            f.write(int(idx.timestamps[i] ^ 0x5A5A).to_bytes(4, "big"))
+        f.truncate(last + torn)
+    del idx
+    keys = V.make_scid_map(ST.load_store(out).select(np.asarray(
+        [wire.msg_type(m) == wire.MSG_CHANNEL_ANNOUNCEMENT for m in msgs])))
+
+    def check_on_card(ms):
+        items = V.message_items(
+            [wire.parse_gossip(m) for m in ms],
+            lambda s, d: keys(np.array([s], np.uint64),
+                              np.array([d]))[0].tobytes())
+        ok = V.verify_items(items, device=dev)
+        return [bool(ok[items.msg_index == i].all()) for i in range(len(ms))]
+
+    H.reset_launches()
+    ridx, rep = ST.recover_store(cp, check_sigs=check_on_card)
+    rc = H.launch_counts()
+    log(f"  recovery: torn {rep.truncated_bytes} bytes, {rep.crc_bad} "
+        f"CRC-bad, {rep.requalified} requalified on the card, "
+        f"{rep.dropped} dropped, {rep.records} records; launches "
+        f"{json.dumps(rc)}")
+    if dev.type == "cuda":
+        assert rc == {k: int(k in ENGINE_KERNELS[MAIN]) for k in rc}, \
+            "the re-check did not run on the card"
+    assert (rep.truncated_bytes, rep.crc_bad, rep.requalified, rep.dropped,
+            rep.records) == (torn, 8, 8, 0, len(msgs) - 1), "recovery"
+    assert ridx.alive().all()
+    return {k: ra["launches"][k] + rb["launches"][k]
+            for k in ENGINE_KERNELS[MAIN]}, figures
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 timing
 
 
@@ -612,6 +1158,12 @@ def main(argv=None) -> int:
                     help="HTLCs a commitment in phase 5")
     ap.add_argument("--commitments", type=int, default=136,
                     help="commitments of the bulk fan-out in phase 5")
+    ap.add_argument("--ingest-channels", type=int, default=10_000,
+                    help="channels of phase 6's live ingest")
+    ap.add_argument("--ingest-nodes", type=int, default=1_250,
+                    help="nodes of phase 6's live ingest")
+    ap.add_argument("--ingest-runs", type=int, default=1,
+                    help="times phase 6 runs (its spread is printed)")
     ap.add_argument("--mainnet", action="store_true",
                     help="250,000 channels and 60,000 nodes "
                          "(about 1.56 M signatures)")
@@ -921,6 +1473,30 @@ def main(argv=None) -> int:
     counts = sign_path(args, gen, dev, card, torch, F, E, H, ref)
     for k, rec in sign_records.items():
         rec["launches"] = counts[WRAPPER.get(k, k)]
+
+    # -- phase 6: live gossip ingest at the width of a 10k-channel node,
+    # each run after a reading of K3 on phase 4's inputs (the card's state)
+    counts, spread = dict.fromkeys(ENGINE_KERNELS[MAIN], 0), []
+    for run in range(args.ingest_runs):
+        k3_ms = time_cuda(torch, runs["glv_scan"][0], reps=20)
+        log(f"phase 6 run {run + 1} of {args.ingest_runs}: K3 "
+            f"{k3_ms:.4f} ms/call at B={Bk} just before")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as d:
+            c, figures = live_ingest(args, gen, dev, card, torch, F, E, H,
+                                     S, ref, d)
+        counts = {k: counts[k] + c[k] for k in counts}
+        spread.append((k3_ms, figures))
+    if args.ingest_runs > 1:
+        for wave in ("gap", "bolt7"):
+            log(f"phase 6 spread, {wave} wave, {args.ingest_runs} runs on "
+                f"{card} (K3 ms, sig/s, msg/s, flush p50 ms, p99 ms, "
+                f"flushes, sheds): " + json.dumps([
+                    [round(k3, 4)] + [round(f[wave][m], 1) for m in (
+                        "sig_s", "msg_s", "p50_ms", "p99_ms", "flushes",
+                        "sheds")] for k3, f in spread]))
+    for rec in kernels:
+        rec["live_ingest_launches"] = counts.get(
+            WRAPPER.get(rec["name"], rec["name"]), 0)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -14,10 +14,15 @@ import numpy as np
 import torch
 
 from .crypto.field import NLIMBS
+from .gossip.gossmap import Gossmap
 from .gossip.store import StoreIndex
 from .gossip.verify import VerifyItems
 
 _INDEX_FIELDS = ("offsets", "lengths", "flags", "timestamps", "crcs", "types")
+_GOSSMAP_ARRAYS = ("node_ids", "scids", "node1", "node2", "capacity_sat",
+                   "enabled", "cltv_delta", "htlc_min_msat", "htlc_max_msat",
+                   "fee_base_msat", "fee_ppm", "timestamps", "adj_off",
+                   "adj_chan", "adj_dir", "adj_src")
 _ITEM_FIELDS = ("rows", "n_blocks", "sigs", "pubkeys", "msg_index", "z_host",
                 "row_of_item")
 
@@ -55,3 +60,17 @@ def verify_items(items) -> VerifyItems:
     return VerifyItems(**{k: None if getattr(items, k) is None
                           else np.asarray(getattr(items, k))
                           for k in _ITEM_FIELDS})
+
+
+def gossmap(g) -> Gossmap:
+    """A routing graph (anything with Gossmap's fields) -> the port's
+    Gossmap: copies of its arrays, its version counters, its dirty flag
+    and its parameter log."""
+    return Gossmap(
+        **{k: None if getattr(g, k) is None else np.array(getattr(g, k))
+           for k in _GOSSMAP_ARRAYS},
+        topology_version=int(g.topology_version),
+        params_version=int(g.params_version),
+        _adjacency_dirty=bool(g._adjacency_dirty),
+        _param_log=[(int(c), int(d)) for c, d in g._param_log],
+        _param_log_base=int(g._param_log_base))

@@ -176,6 +176,46 @@ def extract_channel_updates(idx: StoreIndex, scid_to_nodes) -> VerifyItems:
                        z_host, None, r_off, r_len)
 
 
+def message_items(msgs, update_key) -> VerifyItems:
+    """Parsed gossip messages (wire objects) as one VerifyItems workload:
+    one hashed row a message, row_of_item fanning a
+    channel_announcement's 4 signatures onto its row (the store replay's
+    layout).  A channel_update is checked against
+    ``update_key(scid, direction)``, the 33-byte key of that endpoint of
+    its channel; the other two kinds carry their signers."""
+    regions: list[bytes] = []
+    sigs: list[bytes] = []
+    keys: list[bytes] = []
+    midx: list[int] = []
+    roi: list[int] = []
+    for i, p in enumerate(msgs):
+        row = len(regions)
+        regions.append(p.signed_region())
+        if p.TYPE == wire.MSG_CHANNEL_ANNOUNCEMENT:
+            pairs = p.signature_tuples()
+        elif p.TYPE == wire.MSG_CHANNEL_UPDATE:
+            pairs = [(p.signature,
+                      update_key(p.short_channel_id, p.direction))]
+        else:  # node_announcement (self-signed)
+            pairs = [(p.signature, p.node_id)]
+        for sig, key in pairs:
+            sigs.append(sig)
+            keys.append(key)
+            midx.append(i)
+            roi.append(row)
+    buf = np.frombuffer(b"".join(regions), np.uint8)
+    lengths = np.array([len(r) for r in regions], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+    rows, nb = native.sha256_pack(buf, offsets, lengths, MAX_BLOCKS)
+    return VerifyItems(
+        rows, nb, np.frombuffer(b"".join(sigs), np.uint8).reshape(-1, 64),
+        np.frombuffer(b"".join(k.ljust(33, b"\0") for k in keys),
+                      np.uint8).reshape(-1, 33),
+        np.array(midx, np.int64),
+        _host_hash_oversized(buf, offsets, lengths, nb),
+        np.array(roi, np.int64))
+
+
 def _empty_items() -> VerifyItems:
     return VerifyItems(
         np.zeros((0, MAX_BLOCKS * 64), np.uint8), np.zeros(0, np.uint32),
@@ -287,12 +327,15 @@ def verify_bucket(b: _Bucket, device: torch.device,
     return E.ecdsa_verify_kernel(z, r, s, qx, parity, engine)
 
 
+@torch.inference_mode()
 def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
                  device=None, stats: dict | None = None,
                  engine: str = E.DEFAULT_ENGINE) -> np.ndarray:
     """Verify every signature of `items` on `device` (the card unless
     device="cpu") under the verify engine `engine`.  Returns bool (N,).
-    `stats`, if given, receives the bucket count."""
+    `stats`, if given, receives the bucket count.  Inference mode is
+    thread-local, so it is set here: the live ingest calls this on a
+    worker thread."""
     dev = D.resolve(device)
     N = len(items)
     if stats is not None:

@@ -433,3 +433,45 @@ def test_verify_store_on_card(small_store, engine):
     assert H.launch_counts() == {
         k.__name__: res.buckets * (k.__name__ in ENGINE_KERNELS[engine])
         for k in H.KERNELS}
+
+
+def test_live_ingest_on_card_matches_cpu(small_store, tmp_path):
+    """The small store's messages in a seeded order (many updates before
+    their channel), plus duplicates, through GossipIngest on the card and
+    on the CPU, flushed at the same points under one fake clock: the same
+    store bytes and stats, and K1-K3 launched once a flush on the card."""
+    import asyncio
+    import dataclasses
+
+    from lightning_tpu_torch.gossip import ingest, store
+
+    path, _ = small_store
+    idx = store.load_store(path)
+    msgs = [idx.message(i) for i in range(len(idx))]
+    gen = np.random.default_rng(17)
+    feed = [msgs[i] for i in gen.permutation(len(msgs))]
+    feed += [feed[i] for i in gen.choice(len(feed), 40, replace=False)]
+
+    async def run(device, out):
+        ing = ingest.GossipIngest(out, device=device, now=lambda: 0.0)
+        for i, m in enumerate(feed):
+            await ing.submit(m)
+            if i % 400 == 399:
+                await ing.flush()
+        while ing._queue:
+            await ing.flush()
+        await ing.close()
+        return ing
+
+    H.reset_launches()
+    card = asyncio.run(run("cuda", str(tmp_path / "card.gs")))
+    counts = H.launch_counts()
+    cpu = asyncio.run(run("cpu", str(tmp_path / "cpu.gs")))
+    with open(tmp_path / "card.gs", "rb") as a, \
+            open(tmp_path / "cpu.gs", "rb") as b:
+        assert a.read() == b.read()
+    assert dataclasses.asdict(card.stats) == dataclasses.asdict(cpu.stats)
+    assert card.stats.accepted > 0 and card.stats.dropped[
+        ingest.R_BADSIG] > 0 and card.stats.dropped[ingest.R_NO_CHANNEL] > 0
+    assert counts == {k.__name__: card.stats.flushes * (
+        k.__name__ in ENGINE_KERNELS["pallas_fbj+pp"]) for k in H.KERNELS}

@@ -21,6 +21,7 @@ from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import hopper_secp as H
 from lightning_tpu_torch.daemon import hsmd as TH
+from lightning_tpu_torch.gossip import ingest as TI
 from lightning_tpu_torch.gossip import store as TST
 from lightning_tpu_torch.gossip import verify as TV
 
@@ -55,7 +56,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "lightning_tpu_torch.btc.script",
                 "lightning_tpu_torch.btc.tx",
                 "lightning_tpu_torch.channel.commitment",
-                "lightning_tpu_torch.daemon.hsmd"):
+                "lightning_tpu_torch.daemon.hsmd",
+                "lightning_tpu_torch.utils.events",
+                "lightning_tpu_torch.resilience.breaker",
+                "lightning_tpu_torch.resilience.deadline",
+                "lightning_tpu_torch.resilience.overload",
+                "lightning_tpu_torch.gossip.gossmap",
+                "lightning_tpu_torch.gossip.ingest"):
         assert mod in got["modules"]
 
 
@@ -78,6 +85,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         E.ecdsa_sign_batch(one, [1])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         E.derive_pubkeys(np.ones((1, 20), np.int64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TI.GossipIngest(str(tmp_path / "ingest.gs"))
+    TI.GossipIngest(str(tmp_path / "ingest.gs"), device="cpu").writer.close()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         E.schnorr_verify_batch(one, args[1], one)
     hsm = TH.Hsm(b"\x01" * 32)
@@ -116,3 +126,19 @@ def test_launch_counters_start_at_zero_and_ignore_plain_calls():
                                  "dual_mul_v2": 0, "dual_mul_planes": 0,
                                  "fixed_base_affine": 0, "ecdsa_sign": 0}
     assert np.array_equal(F.to_bytes_be(one)[0, -1:], [1])
+
+
+def test_port_reads_no_environment_but_the_nvcc_path():
+    """Knobs are arguments or module constants: the only environment
+    variable the port reads is NVCC, the compiler's path, in the build."""
+    pkg = os.path.join(ROOT, "lightning_tpu_torch")
+    hits = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    for n, line in enumerate(fh, 1):
+                        if "os.environ" in line or "getenv(" in line:
+                            hits.append((os.path.relpath(path, pkg), n))
+    assert [h[0] for h in hits] == [os.path.join("crypto", "_build.py")]
