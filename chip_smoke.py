@@ -8,10 +8,11 @@
 
 Phases, each fatal on failure:
 
-1. device and build: the card's name and power limit; the eight CUDA
-   kernels (the verify path's K1-K6, the sign path's S1 and S2) built for
-   sm_90a with nvcc, all at once, with each one's ptxas report, and the
-   blocks an SM holds of K2-K6, S1 and S2;
+1. device and build: the card's name and power limit; the ten CUDA
+   kernels (the verify path's K1-K6, the sign path's S1 and S2, the
+   routing path's R1 and R2) built for sm_90a with nvcc, all at once,
+   with each one's ptxas report, and the blocks an SM holds of K2-K6, S1,
+   S2, R1 and R2;
 2. each kernel against its plain PyTorch version on the card, at the
    bucket size, a ragged batch (bucket + 37) and edge inputs, compared
    exactly after normalization mod p or n: K5 also with every digit 0
@@ -81,11 +82,25 @@ Phases, each fatal on failure:
    requalified by a re-check on the card.  With --ingest-runs N the
    phase runs N times, each after a reading of K3, and prints the
    spread.
+7. routing over phase 3's graph (100,000 channels, 12,500 nodes by
+   default): R1 against its plain version on 64 queries and R2 on 8 of
+   the mcf mix and 8 multi-part ones (mismatches counted exactly, each
+   R2 dispatch timed); then, with the launch counters set to 0 just
+   before and read just after, 1,093 getroute queries (bench.py route's
+   1,024, 64 log-uniform amounts with some excluded scids, five named
+   edge cases) through solve_batch and 1,024 through RouteService, and
+   66 getroutes queries (bench.py mcf's 64, one with reservations,
+   biases and a disabled scid, one over a layer-created channel that
+   the host must answer) through solve_mcf_batch and McfService; the
+   services' answers equal solve_batch's; samples of 64 and 16 against
+   dijkstra.getroute and mcf.getroutes; 100 channel_updates patched
+   into the planes, equal to a fresh build; R1 and R2 timed.
 
 Prints one {"kernels": [...]} line (each verify kernel's launches counted
 on the replay of the first engine that runs it, named as "path"; S1's and
 S2's on phase 5's sign path; each kernel's launches in phase 6's waves
-as "live_ingest_launches"), the nvidia-smi name and power limit,
+as "live_ingest_launches"; R1's and R2's on phase 7's routing path), the
+nvidia-smi name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when there is no CUDA device or no port package beside it.
 """
@@ -121,6 +136,11 @@ REPLACES = {
     "ecdsa_sign": "lightning_tpu/crypto/secp256k1.py:405",
 }
 SOURCES = {k: f"lightning_tpu_torch/crypto/csrc/{k}.cu" for k in REPLACES}
+# the routing kernels replace XLA programs of the JAX package's routing
+ROUTING_REPLACES = {
+    "route_sweep": "lightning_tpu/routing/device.py:144",
+    "mcf_ssp": "lightning_tpu/routing/mcf_device.py:419",
+}
 # the wrapper of each kernel, where its name is not the kernel's
 WRAPPER = {"verify_prep": "verify_prep_core",
            "fixed_base": "fixed_base_affine"}
@@ -1123,6 +1143,387 @@ def live_ingest(args, gen, dev, card, torch, F, E, H, S, ref, tmpdir,
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: routing on the card
+
+
+def route_mix(RD, g, rng_seed, n):
+    """bench.py route's traffic: random node pairs, 1,000,000 msat."""
+    rng = np.random.default_rng(rng_seed)
+    out = []
+    for _ in range(n):
+        a, b = rng.integers(0, g.n_nodes, 2)
+        if a == b:
+            b = (b + 1) % g.n_nodes
+        out.append(RD.RouteQuery(bytes(g.node_ids[a]), bytes(g.node_ids[b]),
+                                 1_000_000))
+    return out
+
+
+def route_extra(RD, g, gen, n):
+    """Amounts log-uniform from 10^3 to 10^9 msat, 5 % of the queries
+    with 1-3 excluded scids."""
+    out = []
+    for _ in range(n):
+        a, b = gen.choice(g.n_nodes, 2, replace=False)
+        q = RD.RouteQuery(bytes(g.node_ids[a]), bytes(g.node_ids[b]),
+                          int(10 ** gen.uniform(3, 9)))
+        if gen.random() < 0.05:
+            q.excluded_scids = {int(s) for s in gen.choice(
+                g.scids, int(gen.integers(1, 4)), replace=False)}
+        out.append(q)
+    return out
+
+
+def route_edges(RD, g):
+    """The named edge cases and the answer each must get."""
+    a, b = bytes(g.node_ids[0]), bytes(g.node_ids[1])
+    return {
+        "src_is_dst": (RD.RouteQuery(a, a, 1_000),
+                       ("noroute", "source is destination")),
+        "unknown_node": (RD.RouteQuery(a, b"\x02" + b"\xee" * 32, 1_000),
+                         ("error",)),
+        "amount_cap": (RD.RouteQuery(a, b, RD.ROUTE_MAX_AMOUNT_MSAT + 1),
+                       ("fallback", RD.R_AMOUNT_CAP)),
+        "riskfactor_cap": (RD.RouteQuery(
+            a, b, 1_000, riskfactor=RD.ROUTE_MAX_RISKFACTOR + 1),
+            ("fallback", RD.R_RISKFACTOR_CAP)),
+        "max_hops_10": (RD.RouteQuery(a, b, 1_000, max_hops=10),
+                        ("fallback", RD.R_MAX_HOPS)),
+    }
+
+
+def mcf_mix(MD, g, rng_seed, n):
+    """bench.py mcf's traffic: random pairs, 100,000 to 50,000,000 msat,
+    max_parts 8."""
+    rng = np.random.default_rng(rng_seed)
+    out = []
+    for _ in range(n):
+        a, b = rng.integers(0, g.n_nodes, 2)
+        if a == b:
+            b = (b + 1) % g.n_nodes
+        out.append(MD.McfQuery(bytes(g.node_ids[a]), bytes(g.node_ids[b]),
+                               int(rng.integers(100_000, 50_000_000)),
+                               max_parts=8))
+    return out
+
+
+def hops(route):
+    return [(h.node_id, h.scid, h.direction, h.amount_msat, h.delay)
+            for h in route]
+
+
+def route_parity(RD, DJ, g, queries, results):
+    """Each device answer against dijkstra.getroute as the reference's
+    parity test holds it: the same outcome, the same route cost, and
+    where the hops are the same, the same amount and delay at the
+    source.  Returns (differing answers, same-cost routes whose hops
+    differ: equal-cost ties broken otherwise)."""
+    bad = ties = 0
+    for q, r in zip(queries, results):
+        try:
+            route, src = DJ.getroute(
+                g, q.source, q.destination, q.amount_msat,
+                final_cltv=q.final_cltv, riskfactor=q.riskfactor,
+                excluded_scids=q.excluded_scids, with_source=True)
+            want = "ok"
+        except DJ.NoRoute:
+            want = "noroute"
+        if r[0] != want:
+            bad += 1
+            continue
+        if want == "ok":
+            if RD.route_cost_msat(g, r[1], q.riskfactor) != \
+                    RD.route_cost_msat(g, route, q.riskfactor):
+                bad += 1
+            elif hops(r[1]) != hops(route):
+                ties += 1
+            elif r[2] != src:
+                bad += 1
+    return bad, ties
+
+
+def serve(svc, calls):
+    """Start `svc`, await every call concurrently, close it; returns
+    (answers or exceptions, seconds)."""
+    import asyncio
+
+    async def go():
+        svc.start()
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*(c(svc) for c in calls),
+                                   return_exceptions=True)
+        dt = time.perf_counter() - t0
+        await svc.close()
+        return out, dt
+    return asyncio.run(go())
+
+
+def service_line(tag, svc, n, dt):
+    st = svc.stats
+    fl = [s * 1e3 for s in st.flush_s]
+    log(f"{tag}: {n} concurrent queries in {dt:.3f} s ({n / dt:.1f} q/s), "
+        f"{st.flushes} flushes, flush p50 {pct(fl, 50):.2f} ms p99 "
+        f"{pct(fl, 99):.2f} ms, device occupancy {st.device_queries}/"
+        f"{st.device_lanes} lanes, queries by (path, outcome) "
+        f"{ {f'{p}/{o}': k for (p, o), k in sorted(st.queries.items())} }, "
+        f"host answers by reason {st.host}, restarts {st.restarts}")
+
+
+def same_route_answer(res, ans):
+    """A solve_batch tuple and a service answer (route, src) or error."""
+    if res[0] == "ok":
+        return (not isinstance(ans, BaseException)
+                and hops(ans[0]) == hops(res[1]) and ans[1] == res[2])
+    return isinstance(ans, BaseException)
+
+
+def routing(args, g, dev, card, torch):
+    """Phase 7: getroute (R1) and getroutes (R2) over phase 3's graph on
+    the card.  Returns the two kernels' records for the kernels line."""
+    from lightning_tpu_torch.routing import device as RD
+    from lightning_tpu_torch.routing import dijkstra as DJ
+    from lightning_tpu_torch.routing import hopper_route as HR
+    from lightning_tpu_torch.routing import mcf as MCF
+    from lightning_tpu_torch.routing import mcf_device as MD
+    from lightning_tpu_torch.routing.planes import RoutePlanes
+
+    gen = np.random.default_rng(args.seed + 7)
+    t_phase = t0 = time.perf_counter()
+    planes = RoutePlanes.build(g, dev)
+    plane_args = RD._device_plane_args(planes)
+    mp = MD.McfPlanes.build(g, dev)
+    arcs = mp.device_arcs()
+    torch.cuda.synchronize()
+    on_card = sum(t.numel() * t.element_size()
+                  for t in (*planes.dev.values(), *mp.dev.values()))
+    log(f"routing planes of {g.n_channels} channels, {g.n_nodes} nodes "
+        f"in {time.perf_counter() - t0:.2f} s: n_pad {planes.n_pad}, "
+        f"e_pad {planes.e_pad} ({planes.e_real} edges), A_fwd_pad "
+        f"{mp.a_fwd_pad} ({mp.a_fwd_real} forward arcs), {on_card} bytes "
+        f"of planes on the card")
+
+    # 7.1: each kernel against its plain version on the card
+    rmix = route_mix(RD, g, 11, 1024)
+    B = RD.ROUTE_BATCH
+    lanes = [np.stack([planes.edge_ok_mask()] * B),
+             np.array([g.node_index(q.source) for q in rmix[:B]], np.int32),
+             np.array([g.node_index(q.destination) for q in rmix[:B]],
+                      np.int32),
+             np.full(B, 1_000_000, np.int64), np.full(B, 18, np.int64),
+             np.full(B, 10, np.int64)]
+    r1_args = (*plane_args, *(torch.as_tensor(a, device=dev) for a in lanes),
+               planes.n_pad, RD.DEFAULT_MAX_HOPS)
+    got = HR.route_sweep(*r1_args)
+    want = HR.route_sweep_plain(*r1_args)
+    r1_bad = [int((a != b).sum()) for a, b in zip(got, want)]
+    r1_err = max(int((a.long() - b.long()).abs().max()) for a, b in
+                 zip(got, want))
+    log(f"R1 against route_sweep_plain, {B} queries: mismatching elements "
+        f"(dist_src, via, ovf) {r1_bad}; {int((got[0] < HR.INF_COST).sum())}"
+        f" reachable, {int(got[2].sum())} overflow")
+    mmix = mcf_mix(MD, g, 13, 64)
+    big = [MD.McfQuery(q.source, q.destination,
+                       int(gen.integers(10**10, 10**11)), max_parts=8)
+           for q in mmix[:MD.MCF_BATCH]]
+    r2_bad, r2_err, r2_work, r2_s = [0, 0, 0, 0], 0, [], []
+    for chunk in (mmix[:MD.MCF_BATCH], big):
+        ops = MD._prep_chunk(mp, chunk, MD.MCF_BATCH, 1.0,
+                             [None] * len(chunk))
+        lanes2 = [torch.as_tensor(a, device=dev) for a in ops]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = HR.mcf_solve(*arcs, *lanes2, mp.n_pad, work=r2_work)
+        torch.cuda.synchronize()
+        r2_s.append(time.perf_counter() - t0)
+        want = HR.mcf_solve_plain(*arcs[:2], *lanes2, mp.n_pad)
+        r2_bad = [x + int((a != b).sum()) for x, a, b in
+                  zip(r2_bad, got, want)]
+        r2_err = max(r2_err, *(int((a.long() - b.long()).abs().max())
+                               for a, b in zip(got, want)))
+    work = torch.cat(r2_work).cpu().tolist()
+    log(f"R2 against mcf_solve_plain, {MD.MCF_BATCH} queries of the mcf mix "
+        f"and {MD.MCF_BATCH} of 10^10-10^11 msat: mismatching elements "
+        f"(flow, remaining, nopath, walkfail) {r2_bad}; per query "
+        f"(augmentations, rounds, frontier arcs visited) {work}; one "
+        f"dispatch each, {r2_s[0] * 1e3:.1f} and {r2_s[1] * 1e3:.1f} ms")
+    assert sum(r1_bad) == 0 and sum(r2_bad) == 0, \
+        "a routing kernel disagrees with its plain version"
+    assert any(w[0] > 1 for w in work), "no multi-part solve compared"
+
+    # 7.2: the main path, counts set to 0 just before and read just after
+    extra = route_extra(RD, g, gen, 64)
+    edges = route_edges(RD, g)
+    queries = rmix + extra + [q for q, _ in edges.values()]
+    torch.cuda.synchronize()
+    HR.reset_launches()
+    t0 = time.perf_counter()
+    res = RD.solve_batch(planes, queries, batch=B)
+    t_batch = time.perf_counter() - t0
+    kinds = {k: sum(r[0] == k for r in res)
+             for k in ("ok", "noroute", "fallback", "error")}
+    reasons = {}
+    for r in res[:len(rmix) + len(extra)]:
+        if r[0] == "fallback":
+            reasons[r[1]] = reasons.get(r[1], 0) + 1
+    log(f"getroute solve_batch: {len(queries)} queries at B={B} in "
+        f"{t_batch:.3f} s ({len(queries) / t_batch:.1f} q/s): {kinds}; "
+        f"host answers outside the edge cases by reason {reasons}")
+    for (name, (q, want)), r in zip(edges.items(), res[-len(edges):]):
+        log(f"  edge case {name}: {r[0]} {r[1] if len(r) > 1 else ''}")
+        assert r[:len(want)] == want, f"edge case {name}: {r}"
+    assert set(reasons) <= {RD.R_OVERFLOW, RD.R_RECONSTRUCT}, reasons
+
+    svc = RD.RouteService(lambda: g, device=dev, high_wm=4 * len(queries))
+    answers, dt = serve(svc, [
+        (lambda q: lambda s: s.getroute(
+            q.source, q.destination, q.amount_msat, q.final_cltv,
+            q.riskfactor, q.max_hops, q.excluded_scids,
+            with_source=True))(q) for q in rmix])
+    service_line("getroute RouteService", svc, len(rmix), dt)
+    diff = sum(not same_route_answer(r, a) for r, a in zip(res, answers))
+    log(f"RouteService against solve_batch: {diff} answers differ")
+    assert diff == 0 and svc.stats.restarts == 0
+    assert set(svc.stats.host) <= {RD.R_OVERFLOW, RD.R_RECONSTRUCT}
+
+    mq = mmix + [MD.McfQuery(
+        mmix[0].source, mmix[0].destination, 2_000_000,
+        layers=MCF.Layers(
+            disabled={int(g.scids[5])},
+            biases={int(s): float(b) for s, b in zip(
+                g.scids[10:20], gen.integers(-500, 2000, 10))},
+            reserved={(int(s), 0): 500_000 for s in g.scids[20:40]}),
+        max_parts=8)]
+    layered = MD.McfQuery(
+        mmix[1].source, b"\x03" * 33, 30_000, layers=MCF.Layers(
+            created={999_999: {"source": mmix[1].source,
+                               "destination": b"\x03" * 33,
+                               "capacity_sat": 50_000}},
+            updates={(999_999, 0): {"enabled": True}}))
+    t0 = time.perf_counter()
+    mres = MD.solve_mcf_batch(mp, mq + [layered])
+    t_mcf = time.perf_counter() - t0
+    log(f"getroutes solve_mcf_batch: {len(mq) + 1} queries at "
+        f"B={MD.MCF_BATCH} in {t_mcf:.3f} s ({(len(mq) + 1) / t_mcf:.1f} "
+        f"q/s): {[r[0] for r in mres].count('ok')} ok, "
+        f"{[r[0] for r in mres].count('mcferr')} unroutable, answers "
+        f"{[r if r[0] != 'ok' else r[0] for r in mres if r[0] != 'ok']}")
+    assert mres[-1] == ("fallback", MD.R_LAYERED), mres[-1]
+    assert all(r[0] in ("ok", "mcferr") for r in mres[:-1]), \
+        "a getroutes host answer outside the named reasons"
+
+    msvc = MD.McfService(lambda: g, device=dev, high_wm=4 * len(mq))
+    manswers, dt = serve(msvc, [
+        (lambda q: lambda s: s.getroutes(
+            q.source, q.destination, q.amount_msat, layers=q.layers,
+            max_parts=q.max_parts))(q) for q in mq + [layered]])
+    service_line("getroutes McfService", msvc, len(mq) + 1, dt)
+    mdiff = sum(not (r[1] == a if r[0] == "ok"
+                     else isinstance(a, BaseException))
+                for r, a in zip(mres[:-1], manswers[:-1]))
+    log(f"McfService against solve_mcf_batch: {mdiff} answers differ; the "
+        f"layer-created channel's query answered by the host: "
+        f"{msvc.stats.host}")
+    assert mdiff == 0 and msvc.stats.host == {MD.R_LAYERED: 1}
+    assert not isinstance(manswers[-1], BaseException)
+    counts = HR.launch_counts()
+    torch.cuda.synchronize()
+    log(f"routing launches on the main path: {json.dumps(counts)}")
+    assert all(n > 0 for n in counts.values()), "a routing kernel unused"
+
+    # 7.3: the host oracles on samples
+    sample = list(range(0, len(rmix), len(rmix) // 64))[:64]
+    t0 = time.perf_counter()
+    bad, ties = route_parity(RD, DJ, g, [queries[i] for i in sample],
+                             [res[i] for i in sample])
+    t_dj = (time.perf_counter() - t0) / len(sample)
+    log(f"dijkstra.getroute on {len(sample)} sampled queries: {bad} "
+        f"answers differ, {ties} equal-cost routes with other hops; the "
+        f"host oracle takes {t_dj * 1e3:.1f} ms a query (for scale)")
+    msample = list(range(0, len(mq), len(mq) // 16))[:15] + [len(mq) - 1]
+    t0 = time.perf_counter()
+    mbad = 0
+    for i in msample:
+        q = mq[i]
+        try:
+            want = ("ok", MCF.getroutes(g, q.source, q.destination,
+                                        q.amount_msat, layers=q.layers,
+                                        max_parts=q.max_parts))
+        except MCF.McfError as e:
+            want = ("mcferr", str(e))
+        mbad += json.dumps(want, default=str) != json.dumps(
+            mres[i], default=str)
+    t_host = (time.perf_counter() - t0) / len(msample)
+    log(f"mcf.getroutes on {len(msample)} sampled queries (the layered "
+        f"one included): {mbad} result dicts differ; the host oracle "
+        f"takes {t_host * 1e3:.1f} ms a query (for scale)")
+    assert bad == 0 and mbad == 0, "a device answer differs from its oracle"
+
+    # 7.4: 100 channel_updates, patched planes against a fresh build
+    for c in gen.choice(g.n_channels, 100, replace=False):
+        d = int(gen.integers(0, 2))
+        assert g.apply_channel_update(
+            int(g.scids[c]), d, timestamp=int(g.timestamps[d, c]) + 1,
+            disabled=bool(gen.random() < 0.2), cltv_delta=40,
+            htlc_min_msat=int(gen.integers(0, 1000)),
+            htlc_max_msat=int(gen.integers(0, 10_000)) << 20,
+            fee_base_msat=int(gen.integers(0, 5000)),
+            fee_ppm=int(gen.integers(0, 10000)))
+    patched = RoutePlanes.current(g, planes, dev)
+    fresh = RoutePlanes.build(g, dev)
+    resample = [queries[i] for i in sample]
+    n_patch = 0 if patched.patch_idx is None else len(patched.patch_idx)
+    a = RD.solve_batch(patched, resample, batch=B)
+    b = RD.solve_batch(fresh, resample, batch=B)
+    same_planes = all(torch.equal(patched.dev[k], fresh.dev[k])
+                      for k in RD._PLANE_ORDER)
+    log(f"100 channel_updates: {n_patch} lanes "
+        f"patched, planes equal to a fresh build: {same_planes}; re-solve "
+        f"of {len(resample)} queries equal: {repr(a) == repr(b)}")
+    assert n_patch > 0 and same_planes and repr(a) == repr(b)
+
+    # 7.5: timing (CUDA events, 20 calls after 2 warm-ups)
+    ops = MD._prep_chunk(mp, mmix[:MD.MCF_BATCH], MD.MCF_BATCH, 1.0,
+                         [None] * MD.MCF_BATCH)
+    lanes2 = [torch.as_tensor(x, device=dev) for x in ops]
+    E, N, Af = planes.e_pad, planes.n_pad, mp.a_fwd_pad
+    Bm = MD.MCF_BATCH
+    runs = {
+        # planes 48 bytes an edge, the mask, the query lanes; dist, via,
+        # ovf out
+        "route_sweep": (lambda: HR.route_sweep(*r1_args),
+                        lambda: HR.route_sweep_plain(*r1_args),
+                        48 * E + B * E + 32 * B + B * (8 + 4 * N + 1)),
+        # arc endpoints, the arcs by tail, costs and residuals, the query
+        # lanes; flows, remaining and the flags out
+        "mcf_ssp": (lambda: HR.mcf_solve(*arcs, *lanes2, mp.n_pad),
+                    lambda: HR.mcf_solve_plain(*arcs[:2], *lanes2, mp.n_pad),
+                    16 * Af + 4 * (mp.n_pad + 1) + 4 * arcs[3].numel()
+                    + 16 * Bm * Af + 20 * Bm + Bm * (8 * Af + 10)),
+    }
+    records = []
+    mism = {"route_sweep": (sum(r1_bad), r1_err),
+            "mcf_ssp": (sum(r2_bad), r2_err)}
+    wrapper = {"route_sweep": "route_sweep", "mcf_ssp": "mcf_solve"}
+    for k, (kern, plain, nbytes) in runs.items():
+        ms = time_cuda(torch, kern, reps=20)
+        plain_ms = time_cuda(torch, plain, reps=1, warm=1)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"time {k}: {ms:.4f} ms/call, plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms (bytes: {nbytes} read and written once) on "
+            f"{card}")
+        records.append({
+            "name": k, "route": "cuda",
+            "source": f"lightning_tpu_torch/routing/csrc/{k}.cu",
+            "replaces": ROUTING_REPLACES[k],
+            "launches": counts[wrapper[k]], "path": "routing",
+            "max_abs_err": mism[k][1], "mismatches": mism[k][0], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": None})
+    log(f"phase 7 in {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 timing
 
 
@@ -1174,12 +1575,13 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from lightning_tpu_torch.crypto import _build
+        from lightning_tpu_torch import _build
         from lightning_tpu_torch.crypto import engines as E
         from lightning_tpu_torch.crypto import field as F
         from lightning_tpu_torch.crypto import hopper_secp as H
         from lightning_tpu_torch.crypto import ref_python as ref
         from lightning_tpu_torch.crypto import secp256k1 as S
+        from lightning_tpu_torch.gossip import gossmap as GM
         from lightning_tpu_torch.gossip import store as ST
         from lightning_tpu_torch.gossip import synth
         from lightning_tpu_torch.gossip import verify as V
@@ -1205,7 +1607,8 @@ def main(argv=None) -> int:
         smem = "" if "smem" in rep else " | 0 bytes static smem"
         log(f"  ptxas {k}: " + " | ".join(rep.splitlines()) + smem)
     for k in ("build_tables", "glv_scan", "glv_scan2", "dual_mul_v2",
-              "dual_mul_planes", "fixed_base", "ecdsa_sign"):
+              "dual_mul_planes", "fixed_base", "ecdsa_sign", "route_sweep",
+              "mcf_ssp"):
         n = getattr(_build.lib(k), f"{k}_blocks_per_sm")()
         log(f"  {k}: {n} blocks resident per SM")
 
@@ -1336,6 +1739,7 @@ def main(argv=None) -> int:
         _, _, c = replay(engine)
         for k in ENGINE_KERNELS[engine]:
             launches.setdefault(k, (engine, c[k]))
+    route_graph = GM.from_store(ST.load_store(path))    # phase 7's graph
     tmp.cleanup()
 
     # -- phase 4: timing at the bucket size
@@ -1497,6 +1901,9 @@ def main(argv=None) -> int:
     for rec in kernels:
         rec["live_ingest_launches"] = counts.get(
             WRAPPER.get(rec["name"], rec["name"]), 0)
+
+    # -- phase 7: routing on the card over phase 3's graph
+    kernels += routing(args, route_graph, dev, card, torch)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each source under ``csrc/`` compiles to its own shared library with a
+Each source (``crypto/csrc/`` for verify and sign, ``routing/csrc/``
+for routing) compiles to its own shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``), at first use, into the package's ``_build/``
 directory (listed in .gitignore).  All sources compile at once, one nvcc
@@ -15,20 +16,27 @@ import shutil
 import subprocess
 import threading
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
-CSRC = os.path.join(_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
-HEADER = "secp256k1.cuh"
-SOURCES = {
-    "verify_prep": "verify_prep.cu",
-    "build_tables": "build_tables.cu",
-    "glv_scan": "glv_scan.cu",
-    "glv_scan2": "glv_scan2.cu",
-    "dual_mul_v2": "dual_mul_v2.cu",
-    "dual_mul_planes": "dual_mul_planes.cu",
-    "fixed_base": "fixed_base.cu",
-    "ecdsa_sign": "ecdsa_sign.cu",
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CRYPTO_CSRC = os.path.join(_PKG, "crypto", "csrc")      # verify and sign
+ROUTING_CSRC = os.path.join(_PKG, "routing", "csrc")    # routing
+BUILD_DIR = os.path.join(_PKG, "_build")
+# kernel library -> (source directory, source file, the headers of that
+# directory it includes): a library rebuilds when its source or one of
+# its own headers is newer than it
+_SECP = ("secp256k1.cuh",)
+KERNELS = {
+    "verify_prep": (CRYPTO_CSRC, "verify_prep.cu", _SECP),
+    "build_tables": (CRYPTO_CSRC, "build_tables.cu", _SECP),
+    "glv_scan": (CRYPTO_CSRC, "glv_scan.cu", _SECP),
+    "glv_scan2": (CRYPTO_CSRC, "glv_scan2.cu", _SECP),
+    "dual_mul_v2": (CRYPTO_CSRC, "dual_mul_v2.cu", _SECP),
+    "dual_mul_planes": (CRYPTO_CSRC, "dual_mul_planes.cu", _SECP),
+    "fixed_base": (CRYPTO_CSRC, "fixed_base.cu", _SECP),
+    "ecdsa_sign": (CRYPTO_CSRC, "ecdsa_sign.cu", _SECP),
+    "route_sweep": (ROUTING_CSRC, "route_sweep.cu", ("routing.cuh",)),
+    "mcf_ssp": (ROUTING_CSRC, "mcf_ssp.cu", ("routing.cuh",)),
 }
+SOURCES = {name: src for name, (_, src, _) in KERNELS.items()}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -53,8 +61,14 @@ def _stale(name: str) -> bool:
     out = _lib_path(name)
     if not os.path.exists(out):
         return True
-    srcs = [os.path.join(CSRC, SOURCES[name]), os.path.join(CSRC, HEADER)]
+    d, src, headers = KERNELS[name]
+    srcs = [os.path.join(d, f) for f in (src, *headers)]
     return os.path.getmtime(out) < max(os.path.getmtime(s) for s in srcs)
+
+
+def source_path(name: str) -> str:
+    d, src, _ = KERNELS[name]
+    return os.path.join(d, src)
 
 
 def _report_path(name: str) -> str:
@@ -75,8 +89,8 @@ def build_all() -> dict[str, str]:
             procs = {}
             for name in todo:
                 tmp = _lib_path(name) + f".{os.getpid()}.tmp"
-                cmd = [exe, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-                       os.path.join(CSRC, SOURCES[name])]
+                cmd = [exe, *NVCC_FLAGS, "-I", KERNELS[name][0], "-o", tmp,
+                       source_path(name)]
                 procs[name] = (tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True))

@@ -2,9 +2,10 @@
 
 The port learns nothing from data; what both packages must share is limb
 data, the constant window tables (the verify scans' and the sign path's
-comb) and a scanned store.  The JAX package
-holds them as numpy arrays: field elements as uint32 (..., 20) radix-2^13
-limbs, which become int64 tensors here (same values, the port's dtype).
+comb), a scanned store, the routing graph and askrene's layers.  The JAX
+package holds them as numpy arrays: field elements as uint32 (..., 20)
+radix-2^13 limbs, which become int64 tensors here (same values, the
+port's dtype).
 The caller passes the arrays in; this module imports nothing of the JAX
 package, so it works on any numpy arrays of those layouts.
 """
@@ -17,6 +18,7 @@ from .crypto.field import NLIMBS
 from .gossip.gossmap import Gossmap
 from .gossip.store import StoreIndex
 from .gossip.verify import VerifyItems
+from .routing.mcf import Layers
 
 _INDEX_FIELDS = ("offsets", "lengths", "flags", "timestamps", "crcs", "types")
 _GOSSMAP_ARRAYS = ("node_ids", "scids", "node1", "node2", "capacity_sat",
@@ -74,3 +76,18 @@ def gossmap(g) -> Gossmap:
         _adjacency_dirty=bool(g._adjacency_dirty),
         _param_log=[(int(c), int(d)) for c, d in g._param_log],
         _param_log_base=int(g._param_log_base))
+
+
+def mcf_layers(layers) -> Layers:
+    """askrene's layer state (anything with mcf.Layers' fields) -> the
+    port's mcf.Layers: copies of its containers (knowledge's, created's
+    and updates' inner dicts too)."""
+    return Layers(
+        disabled=set(layers.disabled),
+        biases=dict(layers.biases),
+        reserved=dict(layers.reserved),
+        knowledge={k: dict(v) for k, v in layers.knowledge.items()},
+        created={k: dict(v) for k, v in layers.created.items()},
+        updates={k: dict(v) for k, v in layers.updates.items()},
+        disabled_nodes=set(layers.disabled_nodes),
+        node_biases=dict(layers.node_biases))

@@ -51,7 +51,7 @@ import functools
 
 import torch
 
-from . import _build
+from .. import _build
 from . import field as F
 from . import glv as GLV
 from . import secp256k1 as S

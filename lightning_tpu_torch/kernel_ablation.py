@@ -60,7 +60,7 @@ import sys
 import numpy as np
 import torch
 
-from .crypto import _build
+from . import _build
 from .crypto import hopper_secp as H
 
 REPS, WARM = 20, 2
@@ -131,7 +131,7 @@ def edit(src: str, *pairs: tuple[str, str]) -> str:
 def variants(parent: str) -> dict[str, dict[str, tuple]]:
     """kernel -> variant -> (source path or text, include dir), in the
     order of the steps."""
-    here = _build.CSRC
+    here = _build.CRYPTO_CSRC
 
     def read(d, k):
         with open(os.path.join(d, _build.SOURCES[k])) as f:
@@ -188,14 +188,14 @@ def shipped(table) -> dict[str, str]:
     """kernel -> the variant whose source is this tree's."""
     out = {}
     for k, vs in table.items():
-        with open(os.path.join(_build.CSRC, _build.SOURCES[k])) as f:
+        with open(os.path.join(_build.CRYPTO_CSRC, _build.SOURCES[k])) as f:
             mine = f.read()
         for v, (src, inc) in vs.items():
             text = src
             if os.path.exists(src):
                 with open(src) as f:
                     text = f.read()
-            if inc == _build.CSRC and text == mine:
+            if inc == _build.CRYPTO_CSRC and text == mine:
                 out[k] = v
     return out
 

@@ -50,6 +50,19 @@ PRIO_OWN, PRIO_FRESH, PRIO_BULK, PRIO_QUERY = 0, 1, 2, 3
 PRIO_NAMES = ("own", "fresh", "bulk", "query")
 
 
+class Overloaded(RuntimeError):
+    """Retryable admission rejection: the consumer's backlog is past its
+    high watermark; ``retry_after_s`` is the hint for the caller."""
+
+    def __init__(self, family: str, retry_after_s: float, backlog: int):
+        super().__init__(
+            f"{family} overloaded (backlog {backlog}); "
+            f"retry in {retry_after_s:.2f}s")
+        self.family = family
+        self.retry_after_s = retry_after_s
+        self.backlog = backlog
+
+
 class OverloadController:
     """Watermarked backlog supervision for one dispatch family."""
 
@@ -192,6 +205,11 @@ class OverloadController:
         if _breaker.get(self.breaker_family).state == "open":
             hint = min(10.0, hint * 2)
         return hint
+
+    def overloaded(self) -> Overloaded:
+        """The admission rejection for this family, hint included."""
+        return Overloaded(self.family, self.retry_after_s(),
+                          self.pending + self.inflight)
 
     def snapshot(self) -> dict:
         from . import breaker as _breaker

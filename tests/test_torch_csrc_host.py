@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from lightning_tpu.crypto import ref_python as ref
-from lightning_tpu_torch.crypto import _build
+from lightning_tpu_torch import _build
 from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import hopper_secp as H
@@ -129,7 +129,7 @@ def lib(tmp_path_factory):
     src.write_text(SHIM)
     out = d / "libshim.so"
     subprocess.run(["c++", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    "-I", _build.CSRC, "-o", str(out), str(src)],
+                    "-I", _build.CRYPTO_CSRC, "-o", str(out), str(src)],
                    check=True, capture_output=True)
     return ctypes.CDLL(str(out))
 
@@ -396,8 +396,10 @@ def test_batch_inversion_matches_pow(lib, T):
 
 
 def test_sources_are_the_built_ones():
-    for src in _build.SOURCES.values():
-        assert os.path.exists(os.path.join(_build.CSRC, src))
+    for name, (d, src, headers) in _build.KERNELS.items():
+        for f in (src, *headers):
+            assert os.path.exists(os.path.join(d, f)), name
+        assert _build.source_path(name) == os.path.join(d, src)
     assert "-gencode" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -423,7 +425,47 @@ def test_build_all_compiles_each_source_once(monkeypatch, tmp_path):
     assert all("Used 42 registers" in r and "spill" in r
                for r in reports.values())
     lines = calls.read_text().splitlines()
-    assert len(lines) == len(_build.SOURCES) == 8
+    assert len(lines) == len(_build.SOURCES) == 10
     assert all("arch=compute_90a,code=sm_90a" in ln for ln in lines)
     assert _build.build_all() == reports          # nothing stale: no call
-    assert len(calls.read_text().splitlines()) == 8
+    assert len(calls.read_text().splitlines()) == 10
+
+
+def test_build_rebuilds_only_the_sources_of_a_touched_header(monkeypatch,
+                                                             tmp_path):
+    """Each source is tied to its own headers: a newer routing.cuh
+    rebuilds the two routing kernels and nothing else, a newer
+    secp256k1.cuh the eight verify and sign kernels."""
+    calls = tmp_path / "calls.txt"
+    stub = tmp_path / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'touch "$2"\n')
+    stub.chmod(0o755)
+    monkeypatch.setenv("NVCC", str(stub))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    kernels = {}
+    for name, (d, src, headers) in _build.KERNELS.items():
+        copy = tmp_path / os.path.basename(d)
+        copy.mkdir(exist_ok=True)
+        for f in (src, *headers):
+            (copy / f).write_text("")
+            os.utime(copy / f, (1_000_000, 1_000_000))
+        kernels[name] = (str(copy), src, headers)
+    monkeypatch.setattr(_build, "KERNELS", kernels)
+    _build.build_all()
+    for header, want in (("routing.cuh", {"route_sweep", "mcf_ssp"}),
+                         ("secp256k1.cuh", set(kernels) - {
+                             "route_sweep", "mcf_ssp"})):
+        calls.write_text("")
+        d = next(d for d, _, hs in kernels.values() if header in hs)
+        future = os.path.getmtime(_build._lib_path("mcf_ssp")) + 100
+        os.utime(os.path.join(d, header), (future, future))
+        _build.build_all()
+        built = {os.path.basename(ln.split()[-1])
+                 for ln in calls.read_text().splitlines()}
+        assert built == {kernels[k][1] for k in want}
+        for k in want:   # the stub's libraries are older than the header
+            os.utime(_build._lib_path(k), (future + 1, future + 1))

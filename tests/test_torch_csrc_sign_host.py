@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from lightning_tpu.crypto import ref_python as jref
-from lightning_tpu_torch.crypto import _build
+from lightning_tpu_torch import _build
 from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import hopper_secp as H
 
@@ -55,7 +55,7 @@ def lib(tmp_path_factory):
     src.write_text(SHIM)
     out = d / "libshim.so"
     subprocess.run(["c++", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    "-I", _build.CSRC, "-o", str(out), str(src)],
+                    "-I", _build.CRYPTO_CSRC, "-o", str(out), str(src)],
                    check=True, capture_output=True)
     return ctypes.CDLL(str(out))
 

@@ -475,3 +475,114 @@ def test_live_ingest_on_card_matches_cpu(small_store, tmp_path):
         ingest.R_BADSIG] > 0 and card.stats.dropped[ingest.R_NO_CHANNEL] > 0
     assert counts == {k.__name__: card.stats.flushes * (
         k.__name__ in ENGINE_KERNELS["pallas_fbj+pp"]) for k in H.KERNELS}
+
+
+def _route_graph(small_store):
+    from lightning_tpu_torch.gossip import gossmap, store
+
+    return gossmap.from_store(store.load_store(small_store[0]))
+
+
+def test_route_sweep_kernel_matches_plain(small_store):
+    """R1 against its plain version on the card at a ragged batch (67
+    queries): dist at the source, via and the overflow flag equal, with
+    excluded edges, amounts up to 2^48 and riskfactors 0 to 10^6; then
+    solve_batch on the card answers as on the CPU."""
+    from lightning_tpu_torch.routing import device as RD
+    from lightning_tpu_torch.routing import hopper_route as HR
+    from lightning_tpu_torch.routing.planes import RoutePlanes
+
+    g = _route_graph(small_store)
+    g.fee_ppm[:, :20] = 9_999           # overflow at the largest amounts
+    g.htlc_max_msat[:, :20] = 0
+    planes = RoutePlanes.build(g, "cuda")
+    args = RD._device_plane_args(planes)
+    gen = np.random.default_rng(5)
+    Bq = 67
+    ok = np.stack([planes.edge_ok_mask()] * Bq)
+    ok &= gen.random(ok.shape) < 0.95
+    lanes = [ok, gen.integers(0, g.n_nodes, Bq).astype(np.int32),
+             gen.integers(0, g.n_nodes, Bq).astype(np.int32),
+             gen.choice([0, 1_000, 10**6, 10**9, 1 << 47, 1 << 48],
+                        Bq).astype(np.int64),
+             gen.integers(9, 40, Bq).astype(np.int64),
+             gen.choice([0, 1, 10, 10**6], Bq).astype(np.int64)]
+    lanes = [torch.as_tensor(a, device="cuda") for a in lanes]
+    before = HR.route_sweep.launches
+    got = HR.route_sweep(*args, *lanes, planes.n_pad, 20)
+    torch.cuda.synchronize()
+    assert HR.route_sweep.launches == before + 1
+    want = HR.route_sweep_plain(*args, *lanes, planes.n_pad, 20)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[2].any() and (got[0] < HR.INF_COST).any()
+    qs = []
+    for _ in range(70):
+        a, b = gen.choice(g.n_nodes, 2, replace=False)
+        qs.append(RD.RouteQuery(bytes(g.node_ids[a]), bytes(g.node_ids[b]),
+                                int(gen.integers(1_000, 10**9))))
+    card = RD.solve_batch(planes, qs)
+    cpu = RD.solve_batch(RoutePlanes.build(g, "cpu"), qs)
+    assert repr(card) == repr(cpu)
+
+
+def test_mcf_solve_kernel_matches_plain(small_store):
+    """R2 against its plain version on the card: the small store's lanes
+    (single- and multi-part amounts), then random residual graphs with
+    equal and -0.0 costs, negative cycles (walk failures), dead ends and
+    augmentation caps; flows, remaining and both flags equal; then
+    solve_mcf_batch on the card answers as on the CPU."""
+    from lightning_tpu_torch.routing import hopper_route as HR
+    from lightning_tpu_torch.routing import mcf_device as MD
+
+    g = _route_graph(small_store)
+    planes = MD.McfPlanes.build(g, "cuda")
+    gen = np.random.default_rng(9)
+    qs = []
+    for i in range(16):
+        a, b = gen.choice(g.n_nodes, 2, replace=False)
+        amt = int(gen.integers(10**5, 5 * 10**7)) if i < 8 \
+            else int(gen.integers(10**10, 10**11))
+        qs.append(MD.McfQuery(bytes(g.node_ids[a]), bytes(g.node_ids[b]),
+                              amt, max_parts=8))
+    arcs = planes.device_arcs()
+    cases = []
+    for chunk in (qs[:8], qs[8:]):
+        ops = MD._prep_chunk(planes, chunk, 8, 1.0, [None] * 8)
+        cases.append((arcs, ops, planes.n_pad))
+    for case in range(6):
+        af = 64
+        fs = gen.integers(0, 12, af).astype(np.int32)
+        fd = gen.integers(0, 12, af).astype(np.int32)
+        vals = (np.array([0.0, -0.0, 1.0, 2.0, -1.0, 0.5, 1e-10])
+                if case % 2 else gen.normal(0, 5, 20))
+        ops = (gen.choice(vals, (8, af)).astype(np.float64),
+               (gen.integers(0, 50, (8, af))
+                * (gen.random((8, af)) < 0.7)).astype(np.int64),
+               gen.integers(0, 12, 8).astype(np.int32),
+               gen.integers(0, 12, 8).astype(np.int32),
+               gen.integers(1, 200, 8).astype(np.int64),
+               gen.integers(0, 65, 8).astype(np.int32))
+        a_src = torch.as_tensor(np.stack([fs, fd], 1).reshape(-1),
+                                device="cuda")
+        a_dst = torch.as_tensor(np.stack([fd, fs], 1).reshape(-1),
+                                device="cuda")
+        cases.append(((a_src, a_dst, *HR.tail_csr(a_src, 2 * af, 64)),
+                      ops, 64))
+    seen = np.zeros(3, int)
+    for arcs, ops, n_pad in cases:
+        t = [torch.as_tensor(o, device="cuda") for o in ops]
+        before = HR.mcf_solve.launches
+        got = HR.mcf_solve(*arcs, *t, n_pad)
+        torch.cuda.synchronize()
+        assert HR.mcf_solve.launches == before + 1
+        want = HR.mcf_solve_plain(*arcs[:2], *t, n_pad)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        seen += [int((got[1] > 0).sum()), int(got[2].sum()),
+                 int(got[3].sum())]
+    assert (seen > 0).all()
+    card = MD.solve_mcf_batch(planes, qs)
+    cpu = MD.solve_mcf_batch(MD.McfPlanes.build(g, "cpu"), qs)
+    assert repr(card) == repr(cpu)
+    assert sum(r[0] == "ok" for r in card) >= 8

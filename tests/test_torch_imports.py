@@ -24,6 +24,11 @@ from lightning_tpu_torch.daemon import hsmd as TH
 from lightning_tpu_torch.gossip import ingest as TI
 from lightning_tpu_torch.gossip import store as TST
 from lightning_tpu_torch.gossip import verify as TV
+from lightning_tpu_torch.gossip.gossmap import Gossmap
+from lightning_tpu_torch.routing import device as TRD
+from lightning_tpu_torch.routing import hopper_route as HR
+from lightning_tpu_torch.routing import mcf_device as TMD
+from lightning_tpu_torch.routing.planes import RoutePlanes
 
 torch.set_num_threads(1)
 
@@ -62,7 +67,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "lightning_tpu_torch.resilience.deadline",
                 "lightning_tpu_torch.resilience.overload",
                 "lightning_tpu_torch.gossip.gossmap",
-                "lightning_tpu_torch.gossip.ingest"):
+                "lightning_tpu_torch.gossip.ingest",
+                "lightning_tpu_torch.routing.dijkstra",
+                "lightning_tpu_torch.routing.planes",
+                "lightning_tpu_torch.routing.hopper_route",
+                "lightning_tpu_torch.routing.device",
+                "lightning_tpu_torch.routing.mcf",
+                "lightning_tpu_torch.routing.mcf_device"):
         assert mod in got["modules"]
 
 
@@ -95,7 +106,34 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hsm.sign_htlc_batch(client, [bytes(32)],
                             hsm.per_commitment_point(client, 0))
+    g = _one_channel_map()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RoutePlanes.build(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMD.McfPlanes.build(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TRD.RouteService(lambda: g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMD.McfService(lambda: g)
+    assert RoutePlanes.build(g, device="cpu").device.type == "cpu"
     assert D.resolve("cpu") == torch.device("cpu")
+
+
+def _one_channel_map() -> Gossmap:
+    z = np.zeros((2, 1))
+    g = Gossmap(node_ids=np.arange(66, dtype=np.uint8).reshape(2, 33),
+                scids=np.array([1 << 40], np.uint64),
+                node1=np.zeros(1, np.int32), node2=np.ones(1, np.int32),
+                capacity_sat=np.zeros(1, np.float32),
+                enabled=np.ones((2, 1), bool),
+                cltv_delta=z.astype(np.uint16),
+                htlc_min_msat=z.astype(np.uint64),
+                htlc_max_msat=z.astype(np.uint64),
+                fee_base_msat=z.astype(np.uint32),
+                fee_ppm=z.astype(np.uint32),
+                timestamps=np.ones((2, 1), np.uint32))
+    g.ensure_adjacency()
+    return g
 
 
 def test_wrappers_refuse_other_devices():
@@ -115,6 +153,17 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         H.glv_scan2(planes[:33, 0, 0], planes[:33, 0, 0], None,
                     planes[:33], planes[:33])
+    e = torch.zeros(4, dtype=torch.int64, device="meta")
+    q = torch.zeros(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        HR.route_sweep(*(e,) * 7, torch.zeros((2, 4), dtype=torch.bool,
+                                              device="meta"),
+                       *(q,) * 5, 64, 20)
+    with pytest.raises(ValueError, match="unsupported device"):
+        HR.mcf_solve(e, e, e, e, torch.zeros((2, 2), dtype=torch.float64,
+                                             device="meta"),
+                     torch.zeros((2, 2), dtype=torch.int64, device="meta"),
+                     *(q,) * 4, 64)
 
 
 def test_launch_counters_start_at_zero_and_ignore_plain_calls():
@@ -126,6 +175,12 @@ def test_launch_counters_start_at_zero_and_ignore_plain_calls():
                                  "dual_mul_v2": 0, "dual_mul_planes": 0,
                                  "fixed_base_affine": 0, "ecdsa_sign": 0}
     assert np.array_equal(F.to_bytes_be(one)[0, -1:], [1])
+    HR.reset_launches()
+    planes = RoutePlanes.build(_one_channel_map(), device="cpu")
+    q = TRD.RouteQuery(bytes(planes.g.node_ids[0]),
+                       bytes(planes.g.node_ids[1]), 1_000)
+    assert TRD.solve_batch(planes, [q], batch=1)[0][0] == "ok"
+    assert HR.launch_counts() == {"route_sweep": 0, "mcf_solve": 0}
 
 
 def test_port_reads_no_environment_but_the_nvcc_path():
@@ -141,4 +196,4 @@ def test_port_reads_no_environment_but_the_nvcc_path():
                     for n, line in enumerate(fh, 1):
                         if "os.environ" in line or "getenv(" in line:
                             hits.append((os.path.relpath(path, pkg), n))
-    assert [h[0] for h in hits] == [os.path.join("crypto", "_build.py")]
+    assert [h[0] for h in hits] == ["_build.py"]
