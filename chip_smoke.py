@@ -95,11 +95,28 @@ Phases, each fatal on failure:
    services' answers equal solve_batch's; samples of 64 and 16 against
    dijkstra.getroute and mcf.getroutes; 100 channel_updates patched
    into the planes, equal to a fresh build; R1 and R2 timed.
+8. the supervised, pipelined replay of phase 3's store, with the launch
+   counters set to 0 just before and read just after: three replays
+   through verify_store at depth 0 (serial prep) and three at depth 2
+   (a producer thread preps two buckets ahead), in turns, each with
+   phase 3's verdicts; the medians of sig/s, prep, prep stall, dispatch
+   and readback seconds and the overlap ratio, each a delta of
+   obs.snapshot(), and the flight ring's "verify" summary; a replay with
+   dispatch:verify:raise:0.3 armed and a dispatcher that rejects 4
+   signatures: it raises Quarantined with exactly those rows, every
+   other verdict phase 3's, every clean sub-bucket launched on the card
+   and the dispatch outcomes counted equal to the flight records' (the
+   4 rows, checked here by the host oracle, are phase 3's too); one
+   supervised sign_htlc_batch and check_sigs_batch of phase 5's width,
+   both flight records "ok", clntpu_sign_total{path="device"} counted.
 
 Prints one {"kernels": [...]} line (each verify kernel's launches counted
 on the replay of the first engine that runs it, named as "path"; S1's and
 S2's on phase 5's sign path; each kernel's launches in phase 6's waves
-as "live_ingest_launches"; R1's and R2's on phase 7's routing path), the
+as "live_ingest_launches"; R1's and R2's on phase 7's routing path; each
+kernel's launches in phase 8's six replays as
+"supervised_replay_launches"; the fault replay's and the supervised
+sign and check's only in the log), the
 nvidia-smi name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when there is no CUDA device or no port package beside it.
@@ -847,9 +864,9 @@ def drive_ingest(I, V, H, torch, dev, out, high_wm, waves):
     verify_items, launch = V.verify_items, H._launch
     kernel_events = []
 
-    def timed_verify(items, bucket, device=None):
+    def timed_verify(items, bucket, device=None, **kw):
         t = time.perf_counter()
-        ok = verify_items(items, bucket, device=device)
+        ok = verify_items(items, bucket, device=device, **kw)
         r["verify"].append(time.perf_counter() - t)
         return ok
 
@@ -1524,6 +1541,204 @@ def routing(args, g, dev, card, torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the supervised, pipelined replay
+
+
+STAGES = {"prep": "clntpu_replay_prep_seconds_total",
+          "prep_stall": "clntpu_replay_prep_stall_seconds_total",
+          "dispatch": "clntpu_replay_dispatch_seconds_total",
+          "readback": "clntpu_replay_readback_seconds_total"}
+
+
+def metric(snap, name, **labels):
+    """A counter's value, or a histogram's (count, sum), summed over the
+    samples of `name` whose labels match."""
+    fam = snap["metrics"].get(name, {"kind": "counter", "samples": []})
+    xs = [x for x in fam["samples"]
+          if all(x["labels"].get(k) == v for k, v in labels.items())]
+    if fam["kind"] == "histogram":
+        return sum(x["count"] for x in xs), sum(x["sum"] for x in xs)
+    return sum(x["value"] for x in xs)
+
+
+def delta(s1, s0, name, **labels):
+    a, b = metric(s1, name, **labels), metric(s0, name, **labels)
+    return tuple(x - y for x, y in zip(a, b)) if isinstance(a, tuple) \
+        else a - b
+
+
+def expect_raises(exc, fn, *a, **kw):
+    """fn's exception of type `exc`; anything else (or nothing) fails."""
+    try:
+        fn(*a, **kw)
+    except exc as e:
+        return e
+    raise AssertionError(f"{getattr(fn, '__name__', fn)} did not raise "
+                         f"{exc.__name__}")
+
+
+def supervised_replay(args, path, expected, dev, card, torch, H, V, ST, E,
+                      ref):
+    """Phase 8: phase 3's store through the supervised, pipelined replay
+    at depth 0 and depth 2, a fault-injected replay, and one supervised
+    sign and check at phase 5's width; returns the launch counts of the
+    six replays, set to 0 just before them and read just after."""
+    import collections
+
+    from lightning_tpu_torch import obs
+    from lightning_tpu_torch.channel import commitment as C
+    from lightning_tpu_torch.daemon import hsmd
+    from lightning_tpu_torch.obs import flight
+    from lightning_tpu_torch.resilience import breaker, faultinject
+    from lightning_tpu_torch.resilience import quarantine
+
+    t_phase = time.perf_counter()
+    breaker.reset_for_tests()
+    flight.reset_for_tests()
+    torch.cuda.synchronize()
+    H.reset_launches()
+
+    # 8.1: three replays at depth 0 and three at depth 2, in turns; each
+    # number is a delta of obs.snapshot()
+    runs: dict = {0: [], 2: []}
+    n_buckets = 0
+    for depth in (0, 2, 2, 0, 0, 2):
+        s0 = obs.snapshot()
+        t0 = time.perf_counter()
+        idx = ST.load_store(path)
+        assert idx.check_crcs().all(), "store crc mismatch"
+        res = V.verify_store(idx, args.bucket, device=dev, depth=depth)
+        wall = time.perf_counter() - t0
+        s1 = obs.snapshot()
+        wrong = np.nonzero(res.sig_ok != expected)[0]
+        assert len(wrong) == 0, \
+            f"depth {depth}: wrong verdicts at {wrong[:20].tolist()}"
+        d = {k: delta(s1, s0, n) for k, n in STAGES.items()}
+        n_fl, t_fl = delta(s1, s0, "clntpu_verify_flush_seconds")
+        n_ov, ov = delta(s1, s0, "clntpu_replay_overlap_ratio")
+        assert n_fl == 1 and n_ov == 1, "one replay, one observation"
+        d.update(sig_s=res.n_sigs / t_fl, verify_s=t_fl, overlap=ov,
+                 wall_s=wall)
+        runs[depth].append(d)
+        n_buckets = res.buckets
+        log(f"replay depth {depth}: {res.n_sigs} signatures, 0 wrong, "
+            + json.dumps({k: round(v, 4) for k, v in d.items()}))
+        del idx, res
+    torch.cuda.synchronize()
+    counts = H.launch_counts()
+    log(f"launches in phase 8's six replays: {json.dumps(counts)}")
+    main = ENGINE_KERNELS[MAIN]
+    assert all(counts[k] == 6 * n_buckets for k in main) and \
+        sum(counts.values()) == 6 * n_buckets * len(main), \
+        "K1-K3 once a bucket of each replay, nothing else"
+    med = {depth: {k: float(np.median([r[k] for r in rs])) for k in rs[0]}
+           for depth, rs in runs.items()}
+    log(f"phase 8 medians of 3 replays (obs.snapshot deltas; sig/s over "
+        f"clntpu_verify_flush_seconds) on {card}: " + json.dumps(
+            {f"depth {k}": {m: round(v, 4) for m, v in x.items()}
+             for k, x in med.items()}))
+    fam = flight.summary()["families"]["verify"]
+    last = {k: fam["last"][k] for k in (
+        "dispatch_id", "n_real", "queue_wait_ms", "prep_ms", "dispatch_ms",
+        "readback_ms", "h2d_bytes", "d2h_bytes", "outcome")}
+    log(f"flight ring, verify: {fam['total']} dispatches, {fam['ring']} "
+        f"in the ring, last {json.dumps(last)}")
+    log("last replay's buckets (queue wait, prep, dispatch, readback ms): "
+        + json.dumps([[r[k] for k in ("queue_wait_ms", "prep_ms",
+                                      "dispatch_ms", "readback_ms")]
+                      for r in flight.recent("verify", n_buckets)]))
+
+    # 8.2: a fault-injected replay.  The dispatch seam fails a few whole
+    # buckets (each bisects; its first attempt, the whole bucket, runs
+    # on the card); the rows a dispatcher rejects are isolated by the
+    # bisection and raise Quarantined
+    idx = ST.load_store(path)
+    items, _, _ = V.extract_store(idx)
+    n = len(items)
+    poison = sorted({17, n // 2, n // 2 + 1, n - 1})
+    spec = "dispatch:verify:raise:0.3"
+    done = []
+
+    def rejecting(b):
+        if not set(poison).isdisjoint(b.sel.tolist()):
+            raise ValueError("operand rejected")
+        done.append(len(b.sel))
+        return V.verify_bucket(b, dev)
+
+    keep = np.ones(n, bool)
+    keep[poison] = False
+    breaker.reset_for_tests()
+    torch.cuda.synchronize()
+    H.reset_launches()
+    s0 = obs.snapshot()
+    t0 = time.perf_counter()
+    with faultinject.arm(spec):
+        q = expect_raises(quarantine.Quarantined, V.verify_items, items,
+                          args.bucket, device=dev, device_fn=rejecting)
+    t_q = time.perf_counter() - t0
+    s1 = obs.snapshot()
+    fault_counts = H.launch_counts()
+    launched = fault_counts["glv_scan"]
+    recs = flight.recent("verify", n_buckets)
+    counted = {o: delta(s1, s0, "clntpu_dispatches_total", family="verify",
+                        outcome=o) for o in flight.OUTCOMES}
+    counted = {o: int(c) for o, c in counted.items() if c}
+    recorded = dict(collections.Counter(r["outcome"] for r in recs))
+    host = V.host_verify_items(items, idx.buf, np.asarray(poison))
+    log(f"fault replay ({spec}): Quarantined rows {q.rows} in {t_q:.2f} s; "
+        f"outcomes counted {json.dumps(counted)}, in the flight records "
+        f"{json.dumps(recorded)}; {len(done)} clean (sub-)buckets, "
+        f"{launched} K3 launches; the rows by the host oracle "
+        f"{host.astype(int).tolist()}, phase 3 "
+        f"{expected[poison].astype(int).tolist()}; its launches "
+        f"{json.dumps(fault_counts)}")
+    assert q.rows == poison, "quarantined rows"
+    assert np.array_equal(q.verdicts[keep], expected[keep]), "verdicts"
+    assert not q.verdicts[poison].any(), "quarantined rows left False"
+    assert np.array_equal(host, expected[poison]), "host oracle on the rows"
+    assert launched == len(done) > n_buckets, "clean sub-buckets on the card"
+    assert counted == recorded and recorded.get("bisect", 0) > 0
+    breaker.reset_for_tests()
+    del idx, items
+
+    # 8.3: one supervised sign and one check at phase 5's width
+    torch.cuda.synchronize()
+    H.reset_launches()
+    us, them = hsmd.Hsm(b"\x11" * 32, dev), hsmd.Hsm(b"\x22" * 32, dev)
+    peer = b"\x03" + b"\x44" * 32
+    client = us.client(hsmd.CAP_MASTER, peer, dbid=1)
+    their_client = them.client(hsmd.CAP_MASTER, peer, dbid=1)
+    hashes, priv, pub = remote_commitment(C, hsmd, ref, us, client, them,
+                                          their_client, 0, args.htlcs)
+    point = them.per_commitment_point(their_client, 0)
+    s0 = obs.snapshot()
+    sigs = us.sign_htlc_batch(client, [bytes(h) for h in hashes], point)
+    pubs = np.tile(np.frombuffer(pub, np.uint8), (len(hashes), 1))
+    ok = us.check_sigs_batch(hashes, sigs, pubs)
+    s1 = obs.snapshot()
+    sign_rec, check_rec = flight.recent("sign")[-1], flight.recent("check")[-1]
+    n_dev = delta(s1, s0, "clntpu_sign_total", op="htlc", path="device")
+    log(f"supervised sign_htlc_batch ({len(hashes)} HTLCs): outcome "
+        f"{sign_rec['outcome']}, {sign_rec['dispatch_ms']} ms, h2d "
+        f"{sign_rec['h2d_bytes']} B; check_sigs_batch: outcome "
+        f"{check_rec['outcome']}, {int(ok.sum())}/{len(ok)} true; "
+        f"clntpu_sign_total{{path=device}} +{n_dev}")
+    assert ok.all() and (sigs == E.host_sign_grind_batch(
+        hashes, [priv] * len(hashes))).all(), "supervised sign"
+    assert (sign_rec["outcome"], check_rec["outcome"], n_dev) == \
+        ("ok", "ok", 1), "sign and check flight records"
+
+    torch.cuda.synchronize()
+    check_counts = H.launch_counts()
+    log(f"launches of the supervised sign and check: "
+        f"{json.dumps(check_counts)}; phase 8 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    assert all(check_counts[k] > 0 for k in main + ("ecdsa_sign",)), \
+        "a kernel of the sign or check was not launched"
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 timing
 
 
@@ -1740,7 +1955,6 @@ def main(argv=None) -> int:
         for k in ENGINE_KERNELS[engine]:
             launches.setdefault(k, (engine, c[k]))
     route_graph = GM.from_store(ST.load_store(path))    # phase 7's graph
-    tmp.cleanup()
 
     # -- phase 4: timing at the bucket size
     clock = sm_clock_hz()
@@ -1904,6 +2118,15 @@ def main(argv=None) -> int:
 
     # -- phase 7: routing on the card over phase 3's graph
     kernels += routing(args, route_graph, dev, card, torch)
+
+    # -- phase 8: the supervised, pipelined replay of phase 3's store;
+    # each kernel's launches in its six replays
+    counts = supervised_replay(args, path, expected, dev, card, torch, H, V,
+                               ST, E, ref)
+    tmp.cleanup()
+    for rec in kernels:
+        rec["supervised_replay_launches"] = counts.get(
+            WRAPPER.get(rec["name"], rec["name"]), 0)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

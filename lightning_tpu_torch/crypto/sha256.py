@@ -115,11 +115,20 @@ def digest_to_bytes(digest) -> np.ndarray:
     return b.astype(np.uint8).reshape(*digest.shape[:-1], 32)
 
 
-def bytes_to_words(rows: np.ndarray, max_blocks: int) -> np.ndarray:
-    """(B, max_blocks*64) uint8 -> (B, max_blocks, 16) int64 big-endian."""
+def bytes_to_words(rows: np.ndarray, max_blocks: int,
+                   out: np.ndarray | None = None) -> np.ndarray:
+    """The first max_blocks 64-byte blocks of (B, k*64) uint8 rows ->
+    (B, max_blocks, 16) int64 big-endian words, written into `out` when
+    it is given."""
     B = rows.shape[0]
-    w = rows.reshape(B, max_blocks, 16, 4).astype(np.int64)
-    return (w[..., 0] << 24) | (w[..., 1] << 16) | (w[..., 2] << 8) | w[..., 3]
+    w = rows.reshape(B, -1, 16, 4)[:, :max_blocks]
+    if out is None:
+        out = np.empty((B, max_blocks, 16), np.int64)
+    np.left_shift(w[..., 0], 24, out=out, dtype=np.int64)
+    out |= np.left_shift(w[..., 1], 16, dtype=np.int64)
+    out |= np.left_shift(w[..., 2], 8, dtype=np.int64)
+    out |= w[..., 3]
+    return out
 
 
 def pack_messages(msgs: list[bytes], max_blocks: int | None = None):

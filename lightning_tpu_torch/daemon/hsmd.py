@@ -14,9 +14,14 @@ The subset of the JAX package's daemon/hsmd.py the fan-out needs, with
 the same derivations, so a secret gives the same keys and signatures in
 both (``tests/test_torch_hsmd.py``).  The single signatures (gossip,
 funding, on-chain claims) stay on the host, ``ref.ecdsa_sign``, as they
-are in the JAX package.  Not here: the breaker, quarantine, fault
-injection and flight records around the dispatches, and the wallet's
-``bip32_base`` / ``sign_withdrawal``.
+are in the JAX package.  Not here: the wallet's ``bip32_base`` /
+``sign_withdrawal``.
+
+Both batched calls are supervised dispatches: the sign under the "sign"
+circuit breaker (flight family "sign"), the check under the "verify"
+breaker it shares with the gossip replay (flight family "check"), each
+with its span, fault seam and flight record.  A failed or refused
+dispatch raises: nothing is signed or checked on the host in its place.
 """
 from __future__ import annotations
 
@@ -27,9 +32,96 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import device as D
 from ..btc import keys as K
 from ..crypto import engines as E
 from ..crypto import ref_python as ref
+from ..obs import families as _families
+from ..obs import flight as _flight
+from ..resilience import breaker as _breaker
+from ..resilience import faultinject as _fault
+from ..utils import trace
+
+_M_SIGN_SIGS = _families.SIGN_BATCH_SIGS
+_M_SIGN_CALLS = _families.SIGN_CALLS
+
+
+def _note_sign(op: str, n_sigs: int, path: str) -> None:
+    _M_SIGN_SIGS.labels(op).observe(n_sigs)
+    _M_SIGN_CALLS.labels(op, path).inc()
+
+
+def _sign_batch_resilient(op: str, msg_hashes: np.ndarray,
+                          seckeys: list[int], device) -> np.ndarray:
+    """Batched sign under the "sign" circuit breaker, one flight-recorded
+    "sign" dispatch.  An open breaker raises ``BreakerOpen`` and a failed
+    dispatch raises."""
+    device = D.resolve(device)
+    B = msg_hashes.shape[0]
+    brk = _breaker.get("sign")
+    # the carrier links the caller's span (the enqueue point) to this
+    # dispatch span
+    corr = trace.new_corr()
+    with _flight.dispatch("sign", n_real=B, lanes=B, shape=(B, 32),
+                          corr_ids=(corr.corr_id,),
+                          breaker_state=brk.state) as rec:
+        with trace.span("sign/dispatch", corr=corr, op=op,
+                        dispatch_id=rec["dispatch_id"]):
+            with trace.annotation("sign/dispatch", device):
+                return _sign_dispatch(op, msg_hashes, seckeys, brk, rec, B,
+                                      device)
+
+
+def _sign_dispatch(op: str, msg_hashes: np.ndarray, seckeys: list[int],
+                   brk, rec: dict, B: int, device) -> np.ndarray:
+    if not brk.allow():
+        raise _breaker.BreakerOpen("sign", brk.retry_in_s())
+    try:
+        _fault.fire("sign", "sign")
+        # operand staging: B 32-byte hashes and B 32-byte keys up, B
+        # compact signatures back
+        rec["h2d_bytes"] = int(msg_hashes.nbytes) + 32 * B
+        _families.TRANSFER_BYTES.labels("sign", "h2d").inc(rec["h2d_bytes"])
+        out = E.ecdsa_sign_batch(msg_hashes, seckeys, device=device)
+    except Exception:
+        brk.record_failure()
+        raise
+    brk.record_success()
+    rec["outcome"] = "ok"
+    rec["d2h_bytes"] = 64 * B
+    _families.TRANSFER_BYTES.labels("sign", "d2h").inc(64 * B)
+    _note_sign(op, B, "device")
+    return out
+
+
+def _check_sigs_resilient(msg_hashes: np.ndarray, sigs64: np.ndarray,
+                          pubkeys33: np.ndarray, device) -> np.ndarray:
+    """Batched sig-check under the "verify" breaker it shares with the
+    gossip replay (the same kernels, the same health signal), one
+    flight-recorded dispatch of its own family "check".  An open breaker
+    raises ``BreakerOpen`` and a failed dispatch raises."""
+    device = D.resolve(device)
+    B = msg_hashes.shape[0]
+    brk = _breaker.get("verify")
+    corr = trace.new_corr()
+    with _flight.dispatch("check", n_real=B, lanes=B, shape=(B, 32),
+                          corr_ids=(corr.corr_id,),
+                          breaker_state=brk.state) as rec:
+        with trace.span("check/dispatch", corr=corr,
+                        dispatch_id=rec["dispatch_id"]):
+            if not brk.allow():
+                raise _breaker.BreakerOpen("verify", brk.retry_in_s())
+            try:
+                _fault.fire("dispatch", "verify")
+                out = E.ecdsa_verify_batch(msg_hashes, sigs64, pubkeys33,
+                                           bucket=E.SIGN_BUCKET,
+                                           device=device)
+            except Exception:
+                brk.record_failure()
+                raise
+            brk.record_success()
+            rec["outcome"] = "ok"
+            return out
 
 # Capability bits (shape mirrors hsmd/permissions.h)
 CAP_ECDH = 1
@@ -152,10 +244,13 @@ class Hsm:
         client._need(CAP_SIGN_COMMITMENT)
         if not sighashes:
             return np.zeros((0, 64), np.uint8)
-        priv = self.htlc_privkey(client, remote_per_commitment_point)
-        hashes = np.frombuffer(b"".join(sighashes), np.uint8).reshape(-1, 32)
-        return E.ecdsa_sign_batch(hashes, [priv] * len(sighashes),
-                                  device=self.device)
+        with trace.span("hsmd/sign_htlc_batch", n=len(sighashes)):
+            priv = self.htlc_privkey(client, remote_per_commitment_point)
+            hashes = np.frombuffer(b"".join(sighashes),
+                                   np.uint8).reshape(-1, 32)
+            return _sign_batch_resilient("htlc", hashes,
+                                         [priv] * len(sighashes),
+                                         self.device)
 
     def sign_remote_commitment(self, client: HsmClient,
                                sighash: bytes) -> bytes:
@@ -207,5 +302,4 @@ class Hsm:
         """Batched verify in ONE device call (the self-check Core
         Lightning makes per HTLC with check_tx_sig): the default engine
         pallas_fbj+pp, K1 + K2 + K3 on the card."""
-        return E.ecdsa_verify_batch(msg_hashes, sigs, pubkeys,
-                                    bucket=E.SIGN_BUCKET, device=self.device)
+        return _check_sigs_resilient(msg_hashes, sigs, pubkeys, self.device)

@@ -14,6 +14,11 @@ of a flush are appended to the store in one write and fsync'd, and only
 then handed to ``on_accept``.  An exception in a flush goes to the flush
 loop's restart supervision: it is counted and emitted, never turned into
 a verdict.
+
+Each message's ``gossip/submit`` span mints a correlation carrier that
+rides its queue item into the flush: the ``gossip/flush`` span and every
+bucket dispatch of the flush's ``verify_items`` (a supervised, flight-
+recorded replay) carry the batch's carriers across the worker thread.
 """
 from __future__ import annotations
 
@@ -23,9 +28,11 @@ import time
 from dataclasses import dataclass, field
 
 from .. import device as D
+from .. import obs
+from ..obs import families as _families
 from ..resilience import deadline as _deadline
 from ..resilience import overload as _overload
-from ..utils import events
+from ..utils import events, trace
 from . import store as gstore
 from . import verify as gverify
 from . import wire
@@ -38,6 +45,25 @@ INGEST_HIGH_WM = 4096
 INGEST_LOW_WM = INGEST_HIGH_WM // 2
 # bound of the pending maps (messages held for a missing channel)
 PENDING_CAP = max(1024, INGEST_HIGH_WM)
+
+_M_FLUSH_SECONDS = obs.histogram(
+    "clntpu_gossip_flush_seconds",
+    "End-to-end wall time of one ingest flush "
+    "(build + device verify + apply + store append)")
+_M_FLUSH_SIGS = obs.histogram(
+    "clntpu_gossip_flush_sigs",
+    "Signatures per ingest flush", buckets=obs.SIZE_BUCKETS)
+_M_ACCEPTED = obs.counter(
+    "clntpu_gossip_accepted_total", "Gossip messages accepted")
+_M_DROPPED = obs.counter(
+    "clntpu_gossip_dropped_total",
+    "Gossip messages dropped/held before acceptance, by reason",
+    labelnames=("reason",))
+_M_QUEUE = obs.gauge(
+    "clntpu_gossip_queue_sigs",
+    "Signatures currently queued awaiting a verify flush")
+_M_BACKLOG = _families.INGEST_BACKLOG
+_M_FLUSH_ERRORS = _families.INGEST_FLUSH_ERRORS
 
 # drop reasons
 R_DUP = "duplicate"
@@ -63,6 +89,9 @@ class _QItem:
     raw: bytes
     source: object             # opaque peer handle (None = local/store)
     n_sigs: int
+    # the carrier minted at submit (trace.new_corr): links the message's
+    # submit span to the flush and dispatch spans that verify it
+    corr: object = None
 
 
 def _shed_key(kind: int, parsed) -> dict:
@@ -91,6 +120,7 @@ class IngestStats:
 
     def drop(self, reason: str) -> None:
         self.dropped[reason] = self.dropped.get(reason, 0) + 1
+        _M_DROPPED.labels(reason).inc()
 
 
 class GossipIngest:
@@ -170,7 +200,13 @@ class GossipIngest:
         return await self.overload.wait_capacity(max_wait)
 
     async def submit(self, raw: bytes, source=None) -> None:
-        """Queue one raw gossip message for verification."""
+        """Queue one raw gossip message for verification.  The submit
+        span is the message's enqueue point: the carrier minted here
+        rides the queue item into the flush."""
+        with trace.span("gossip/submit"):
+            await self._submit(raw, source)
+
+    async def _submit(self, raw: bytes, source) -> None:
         try:
             parsed = wire.parse_gossip(raw)
         except Exception:
@@ -195,7 +231,8 @@ class GossipIngest:
                 (parsed.short_channel_id, parsed.direction)):
             self.stats.drop(R_RATELIMIT)
             return
-        self._queue.append(_QItem(kind, parsed, raw, source, n_sigs))
+        self._queue.append(_QItem(kind, parsed, raw, source, n_sigs,
+                                  corr=trace.new_corr()))
         self._queued_sigs += n_sigs
         self._note_backlog()
         if self._flush_due is None:
@@ -213,6 +250,8 @@ class GossipIngest:
         return self.overload.flush_target(self.flush_size)
 
     def _note_backlog(self) -> None:
+        _M_QUEUE.set(self._queued_sigs)
+        _M_BACKLOG.set(self._queued_sigs + self._inflight_sigs)
         self.overload.update(self._queued_sigs, self._inflight_sigs)
 
     def _priority(self, kind: int, parsed) -> int:
@@ -303,6 +342,7 @@ class GossipIngest:
                 raise
             except Exception as e:
                 delay = backoff.next()
+                _M_FLUSH_ERRORS.inc()
                 _deadline.note_restart("ingest_flush", e, delay)
                 events.emit("ingest_flush_error",
                             {"error": repr(e),
@@ -314,6 +354,7 @@ class GossipIngest:
             try:
                 await self.flush()
             except Exception as e:  # shutting down: surface, don't retry
+                _M_FLUSH_ERRORS.inc()
                 events.emit("ingest_flush_error",
                             {"error": repr(e), "restart_delay_s": 0.0})
                 log.exception("final ingest flush failed on close")
@@ -367,6 +408,7 @@ class GossipIngest:
         finally:
             self._flushing = False
             dt = time.perf_counter() - t0
+            _M_FLUSH_SECONDS.observe(dt)
             self._inflight_sigs = 0
             # drain rate for the retry hint, then the post-flush backlog
             # (wakes backpressure waiters below the low watermark)
@@ -374,16 +416,20 @@ class GossipIngest:
             self._note_backlog()
 
     async def _flush_batch(self, batch: list[_QItem]) -> None:
+        corrs = [it.corr for it in batch if it.corr is not None]
         items = self._build_items(batch)
         self.stats.flushes += 1
         self.stats.batched_sigs += len(items)
         self.stats.max_batch = max(self.stats.max_batch, len(items))
+        _M_FLUSH_SIGS.observe(len(items))
         # the deadline bounds only the (pure) verify dispatch, so a blown
-        # deadline cannot split the apply and the store append below
-        ok = await _deadline.guard(
-            asyncio.to_thread(gverify.verify_items, items, self.bucket,
-                              device=self.device),
-            self.deadline_s, "ingest", "flush")
+        # deadline cannot split the apply and the store append below; the
+        # carriers cross the worker-thread hop explicitly
+        with trace.span("gossip/flush", corr=corrs, sigs=len(items)):
+            ok = await _deadline.guard(
+                asyncio.to_thread(gverify.verify_items, items, self.bucket,
+                                  device=self.device, corr=corrs),
+                self.deadline_s, "ingest", "flush")
         self._accepted = []
         pos = 0
         for it in batch:
@@ -401,6 +447,7 @@ class GossipIngest:
                 [getattr(it.parsed, "timestamp", 0)
                  for it in self._accepted], sync=True)
             self.stats.accepted += len(self._accepted)
+            _M_ACCEPTED.inc(len(self._accepted))
             if self.on_accept is not None:
                 for it in self._accepted:
                     self.on_accept(it.raw, it.source)

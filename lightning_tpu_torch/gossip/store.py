@@ -8,8 +8,10 @@ On-disk format (common/gossip_store.h in Core Lightning):
 
 One mmap and a native scan into flat numpy arrays; no per-record Python
 objects.  Recovery after a crash (``recover_store``) truncates a torn
-tail and re-checks the records whose CRC fails; ``mark_deleted`` and
-``compact_store`` are Core Lightning's flag flip and compaction.
+tail and re-checks the records whose CRC fails (counted as quarantined
+store rows); ``mark_deleted`` and ``compact_store`` are Core Lightning's
+flag flip and compaction.  ``StoreWriter``'s writes pass the "append"
+fault seam (``resilience/faultinject.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs import families as _f
+from ..resilience import faultinject as _fault
+from ..resilience import quarantine as _quarantine
 from ..utils import native
 
 log = logging.getLogger("lightning_tpu_torch.gossip.store")
@@ -180,6 +185,7 @@ def recover_store(path: str, *, check_sigs=None,
             good = f.read(valid_end)
         _replace_atomically(path, good, "recover")
         rep.truncated_bytes = size - valid_end
+        _f.RECOVERY_STORE_TRUNCATED_BYTES.inc(rep.truncated_bytes)
         log.warning("gossip store %s: torn tail (%d bytes past offset %d) "
                     "truncated", path, rep.truncated_bytes, valid_end)
 
@@ -193,6 +199,7 @@ def recover_store(path: str, *, check_sigs=None,
     if len(bad) == 0:
         return idx, rep
     rep.crc_bad = int(len(bad))
+    _quarantine.note("store", "crc_mismatch", rep.crc_bad)
     keep = np.zeros(len(bad), bool)
     if check_sigs is not None:
         msgs = [idx.message(int(i)) for i in bad]
@@ -206,7 +213,10 @@ def recover_store(path: str, *, check_sigs=None,
     drop = bad[~keep]
     rep.dropped = int(len(drop))
     rep.dropped_rows = [int(i) for i in drop]
+    if rep.requalified:
+        _f.RECOVERY_STORE_ROWS.labels("requalified").inc(rep.requalified)
     if rep.dropped:
+        _f.RECOVERY_STORE_ROWS.labels("dropped").inc(rep.dropped)
         _flag_deleted(path, idx, drop)
         idx.flags[drop] |= FLAG_DELETED
     log.warning("gossip store %s: %d CRC-bad record(s): %d requalified, "
@@ -231,11 +241,27 @@ class StoreWriter:
         if fresh:
             self.f.write(bytes([VERSION_BYTE]))
 
+    def _write(self, blob: bytes) -> None:
+        """One store write at the "append" fault seam.  With a crash
+        armed there, the write is split so the kill lands MID-record (the
+        torn tail that recover_store cuts on the next start); a raise or
+        hang fires before any byte is written, so an injected error
+        never corrupts the store."""
+        if blob and _fault.crash_armed("append", "store"):
+            half = max(1, len(blob) // 2)
+            self.f.write(blob[:half])
+            self.f.flush()
+            _fault.fire("append", "store")
+            self.f.write(blob[half:])
+        else:
+            _fault.fire("append", "store")
+            self.f.write(blob)
+
     def append(self, msg: bytes, timestamp: int = 0, flags: int = 0,
                sync: bool = False):
         """Append one record; sync=True makes it durable before
         returning."""
-        self.f.write(_record(msg, timestamp, flags))
+        self._write(_record(msg, timestamp, flags))
         if sync:
             self.sync()
 
@@ -249,7 +275,7 @@ class StoreWriter:
         crash can lose only a suffix of the batch (and leave one torn
         record at the cut, which recover_store removes): it never keeps
         record i + 1 without record i."""
-        self.f.write(b"".join(
+        self._write(b"".join(
             _record(m, int(timestamps[i]) if timestamps is not None else 0)
             for i, m in enumerate(msgs)))
         if sync:

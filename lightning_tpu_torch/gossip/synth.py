@@ -62,6 +62,30 @@ def sign_bulk(hashes: list[bytes], keys: list[int], rng,
     return E.ecdsa_sign_simple(z, keys, ks, SIGN_BUCKET, device)
 
 
+def make_signed_batch(n: int, rng: np.random.Generator | None = None,
+                      device=None):
+    """n signed channel_update-sized messages (130-byte signed regions),
+    as the JAX package's make_signed_batch builds them: keys by S1 and
+    signatures by S2 on `device` (the card unless device="cpu").  Returns
+    (rows, n_blocks, sigs, pubs), rows being sha-padded signed regions in
+    the (n, MAX_BLOCKS * 64) layout verify_items consumes."""
+    from ..utils import native
+    from .verify import MAX_BLOCKS
+
+    dev = D.resolve(device)
+    rng = rng or np.random.default_rng(0)
+    keys = _rand_scalars(rng, n)
+    pubs = E.derive_pubkeys(F.from_int_array(keys).numpy(), SIGN_BUCKET, dev)
+    msg_len = 130
+    raw = rng.integers(0, 256, n * msg_len).astype(np.uint8)
+    offs = np.arange(n, dtype=np.int64) * msg_len
+    rows, nb = native.sha256_pack(raw, offs, np.full(n, msg_len, np.int64),
+                                  MAX_BLOCKS)
+    hashes = [_sha256d(raw[i * msg_len:(i + 1) * msg_len].tobytes())
+              for i in range(n)]
+    return rows, nb, sign_bulk(hashes, keys, rng, dev), pubs
+
+
 def _off_curve_key(rng) -> bytes:
     while True:
         x = _rand_scalars(rng, 1)[0] % P

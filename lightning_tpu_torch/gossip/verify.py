@@ -21,10 +21,21 @@ with no data from any other bucket.  Rows whose signed region does not
 fit MAX_BLOCKS (n_blocks == 0) are hashed on the host; their signatures
 still verify on the card, with the host hash.  The pubkey tag rule
 (0x02 or 0x03) is applied on the host at the end.
+
+The replay is a pipeline under supervision (``verify_items``): a
+producer thread preps the buckets ahead of the dispatch loop, every
+bucket dispatch runs under the "verify" circuit breaker and quarantine
+bisection, each is one flight record (``obs/flight.py``), and the
+``clntpu_replay_*`` counters split its time into prep, the prep stall
+the dispatch thread sees, dispatch and the one readback.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
+import logging
+import queue as _queue
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -32,16 +43,60 @@ import numpy as np
 import torch
 
 from .. import device as D
+from .. import obs
 from ..crypto import field as F
 from ..crypto import engines as E
 from ..crypto import secp256k1 as S
 from ..crypto import sha256 as SH
-from ..utils import native
+from ..obs import families as _families
+from ..obs import flight as _flight
+from ..resilience import breaker as _breaker
+from ..resilience import faultinject as _fault
+from ..resilience import quarantine as _quarantine
+from ..utils import native, trace
 from . import wire
 from .store import StoreIndex
 
 DEFAULT_BUCKET = 65536
 MAX_BLOCKS = 8  # 512-byte signed regions cover all standard gossip msgs
+
+log = logging.getLogger("lightning_tpu_torch.gossip.verify")
+
+# -- metrics (the JAX package's names, help texts and buckets) --------------
+_M_FLUSH_SECONDS = obs.histogram(
+    "clntpu_verify_flush_seconds",
+    "End-to-end wall time of one verify_items replay (plan + stream + "
+    "readback + host fallback)")
+_M_BATCH_SIGS = obs.histogram(
+    "clntpu_verify_batch_sigs",
+    "Signatures per verify_items call", buckets=obs.SIZE_BUCKETS)
+_M_OCCUPANCY = obs.histogram(
+    "clntpu_verify_batch_occupancy_ratio",
+    "Real lanes / padded lanes per verify_items call "
+    "(1.0 = no bucket padding waste)", buckets=obs.RATIO_BUCKETS)
+_M_LANES = obs.counter(
+    "clntpu_verify_lanes_total",
+    "Device lanes dispatched (real + pad), by kind",
+    labelnames=("kind",))
+_M_DEVICE_BYTES = obs.counter(
+    "clntpu_verify_device_bytes_total",
+    "Host->device bytes staged for verify dispatches")
+# the port hashes these rows on the host and verifies them on the card
+_M_OVERSIZED = obs.counter(
+    "clntpu_verify_oversized_host_total",
+    "Oversized rows (n_blocks == 0) verified on the host fallback path")
+# the pipeline's stages: "prep" is the host's bucket build, "stall" the
+# part of prep the dispatch thread waited for (all of it at depth 0),
+# "dispatch" the upload and kernel enqueue, "readback" the one transfer
+# of the verdicts; overlap = 1 - stall / prep
+_M_R_PREP = _families.REPLAY_PREP
+_M_R_STALL = _families.REPLAY_STALL
+_M_R_DISPATCH = _families.REPLAY_DISPATCH
+_M_R_READBACK = _families.REPLAY_READBACK
+_M_R_OVERLAP = _families.REPLAY_OVERLAP
+_M_R_QDEPTH = _families.REPLAY_QDEPTH
+_M_R_BUCKETS = _families.REPLAY_BUCKETS
+_M_TRANSFER = _families.TRANSFER_BYTES
 
 
 @dataclass
@@ -279,31 +334,84 @@ def _plan_buckets(roi_sorted: np.ndarray, bucket: int) -> list[tuple]:
 
 @dataclass
 class _Bucket:
-    """One bucket's host arrays, ready to upload."""
+    """One bucket's host operands, ready to upload: numpy arrays, or
+    pinned tensors when the bucket goes to the card."""
 
     sel: np.ndarray        # (n,) item indices in dispatch order
-    blocks: np.ndarray     # (R, mb, 16) int64 words
-    n_blocks: np.ndarray   # (R,) int64
-    roi_local: np.ndarray  # (n,) int64, row within the bucket
-    sigs: np.ndarray       # (n, 64) uint8
-    pubkeys: np.ndarray    # (n, 33) uint8
-    z_fix_rows: np.ndarray  # rows (within the bucket) hashed on the host
-    z_fix: np.ndarray      # (len(z_fix_rows), 32) uint8 host sha256d
+    blocks: object         # (R, mb, 16) int64 words
+    n_blocks: object       # (R,) int64
+    roi_local: object      # (n,) int64, row within the bucket
+    sigs: object           # (n, 64) uint8
+    pubkeys: object        # (n, 33) uint8
+    z_fix_rows: object     # rows (within the bucket) hashed on the host
+    z_fix: object          # (len(z_fix_rows), 32) uint8 host sha256d
+    staged_bytes: int = 0
+    prep_seconds: float = 0.0
 
 
-def _prep_bucket(items: VerifyItems, order, roi_sorted, chunk) -> _Bucket:
-    start, end, r0, r1 = chunk
-    sel = order[start:end]
-    nb = items.n_blocks[r0:r1].astype(np.int64)
-    mb = max(1, int(nb.max(initial=0)))
-    blocks = SH.bytes_to_words(
-        np.ascontiguousarray(items.rows[r0:r1, :mb * 64]), mb)
-    fix = np.nonzero(nb == 0)[0]
-    if len(fix) and items.z_host is None:
-        raise ValueError("oversized rows (n_blocks == 0) require z_host")
-    z_fix = items.z_host[r0 + fix] if len(fix) else np.zeros((0, 32), np.uint8)
-    return _Bucket(sel, blocks, nb, roi_sorted[start:end] - r0,
-                   items.sigs[sel], items.pubkeys[sel], fix, z_fix)
+_OPERANDS = ("blocks", "n_blocks", "roi_local", "sigs", "pubkeys",
+             "z_fix_rows", "z_fix")
+
+
+_TORCH_DTYPE = {np.int64: torch.int64, np.uint8: torch.uint8}
+
+
+def _host_array(shape, dtype, pin: bool):
+    """An empty host operand: for the card a pinned tensor (the array to
+    fill is its numpy view), so the upload is asynchronous with no
+    second copy; a numpy array otherwise.  Returns (operand, array)."""
+    if not pin:
+        a = np.empty(shape, dtype)
+        return a, a
+    t = torch.empty(shape, dtype=_TORCH_DTYPE[dtype], pin_memory=True)
+    return t, t.numpy()
+
+
+def _prep_bucket(items: VerifyItems, order, roi_sorted, chunk,
+                 pin: bool = False, corrs=()) -> _Bucket:
+    """Host side of one bucket: slice the rows and signatures and pack
+    the hash rows into words, written straight into pinned memory for
+    the card.  Host work only: it runs on the replay's producer
+    thread."""
+    with trace.span("replay/prep", corr=corrs):
+        t0 = time.perf_counter()
+        _fault.fire("prep", "verify")
+        start, end, r0, r1 = chunk
+        sel = order[start:end]
+        n, R = end - start, r1 - r0
+        nb = items.n_blocks[r0:r1]
+        mb = max(1, int(nb.max(initial=0)))
+        fix = np.nonzero(nb == 0)[0]
+        if len(fix) and items.z_host is None:
+            raise ValueError("oversized rows (n_blocks == 0) require z_host")
+        ops, arr = {}, {}
+        for k, shape, dtype in (
+                ("blocks", (R, mb, 16), np.int64), ("n_blocks", R, np.int64),
+                ("roi_local", n, np.int64), ("sigs", (n, 64), np.uint8),
+                ("pubkeys", (n, 33), np.uint8),
+                ("z_fix_rows", len(fix), np.int64),
+                ("z_fix", (len(fix), 32), np.uint8)):
+            ops[k], arr[k] = _host_array(shape, dtype, pin)
+        SH.bytes_to_words(items.rows[r0:r1], mb, out=arr["blocks"])
+        np.copyto(arr["n_blocks"], nb)
+        np.subtract(roi_sorted[start:end], r0, out=arr["roi_local"])
+        np.take(items.sigs, sel, axis=0, out=arr["sigs"])
+        np.take(items.pubkeys, sel, axis=0, out=arr["pubkeys"])
+        arr["z_fix_rows"][:] = fix
+        if len(fix):
+            arr["z_fix"][:] = items.z_host[r0 + fix]
+        staged = sum(a.nbytes for a in arr.values())
+        return _Bucket(sel, **ops, staged_bytes=staged,
+                       prep_seconds=time.perf_counter() - t0)
+
+
+def _upload(a, device: torch.device) -> torch.Tensor:
+    """One operand onto `device`: asynchronous from pinned memory (the
+    caching host allocator keeps the block until the copy has run, so
+    the caller may drop it at once), a plain copy otherwise."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, non_blocking=a.is_pinned())
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def verify_bucket(b: _Bucket, device: torch.device,
@@ -311,15 +419,12 @@ def verify_bucket(b: _Bucket, device: torch.device,
     """One bucket on `device`: sha256d of its rows, host hashes for the
     oversized rows, z gather, byte unpack, then ECDSA under `engine`.
     Returns bool (n,) on `device`."""
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    z_rows = SH.digest_words_to_limbs(
-        SH.sha256d_blocks(up(b.blocks), up(b.n_blocks)))
+    blocks, n_blocks, roi_local, sig, pub, z_fix_rows, z_fix = (
+        _upload(getattr(b, k), device) for k in _OPERANDS)
+    z_rows = SH.digest_words_to_limbs(SH.sha256d_blocks(blocks, n_blocks))
     if len(b.z_fix_rows):
-        z_rows[up(b.z_fix_rows)] = F.from_bytes_be_dev(up(b.z_fix))
-    z = z_rows[up(b.roi_local)]
-    sig, pub = up(b.sigs), up(b.pubkeys)
+        z_rows[z_fix_rows] = F.from_bytes_be_dev(z_fix)
+    z = z_rows[roi_local]
     r = F.from_bytes_be_dev(sig[:, :32])
     s = F.from_bytes_be_dev(sig[:, 32:])
     qx = F.from_bytes_be_dev(pub[:, 1:])
@@ -327,36 +432,356 @@ def verify_bucket(b: _Bucket, device: torch.device,
     return E.ecdsa_verify_kernel(z, r, s, qx, parity, engine)
 
 
-@torch.inference_mode()
-def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
-                 device=None, stats: dict | None = None,
-                 engine: str = E.DEFAULT_ENGINE) -> np.ndarray:
-    """Verify every signature of `items` on `device` (the card unless
-    device="cpu") under the verify engine `engine`.  Returns bool (N,).
-    `stats`, if given, receives the bucket count.  Inference mode is
-    thread-local, so it is set here: the live ingest calls this on a
-    worker thread."""
-    dev = D.resolve(device)
+def _subbucket(b: _Bucket, lanes: np.ndarray) -> _Bucket:
+    """A subset of a bucket's signature lanes as a bucket of its own.
+    The hash rows are shared; only the per-signature operands and their
+    row indices narrow."""
+    def take(a):
+        return a[torch.from_numpy(lanes)] if isinstance(a, torch.Tensor) \
+            else a[lanes]
+
+    return _Bucket(b.sel[lanes], b.blocks, b.n_blocks, take(b.roi_local),
+                   take(b.sigs), take(b.pubkeys), b.z_fix_rows, b.z_fix)
+
+
+# ---------------------------------------------------------------------------
+# The supervised, pipelined replay
+
+
+class CardLost(RuntimeError):
+    """A dispatch failed and the card no longer answers: the CUDA context
+    is lost (a sticky error fails every later call on it), so nothing is
+    bisected or dispatched again."""
+
+
+def _card_answers(device: torch.device) -> bool:
+    """True unless `device` is a card whose synchronize raises."""
+    if device.type != "cuda":
+        return True
+    try:
+        torch.cuda.synchronize(device)
+    except Exception:
+        return False
+    return True
+
+
+def _merge(n: int, parts, device: torch.device) -> torch.Tensor:
+    """Scatter bisected parts' verdicts into one (n,) result on `device`;
+    lanes no part covers (quarantined) stay False."""
+    out = torch.zeros(n, dtype=torch.bool, device=device)
+    for lanes, res in parts:
+        out[torch.from_numpy(lanes).to(device)] = res.to(device)
+    return out
+
+
+def _wrap_resilient(device_fn, device: torch.device, quarantined: list,
+                    corrs=(), sink: list | None = None):
+    """Supervise one bucket dispatcher with the "verify" circuit breaker
+    and poisoned-batch quarantine:
+
+    * breaker open: raises ``BreakerOpen``;
+    * dispatch raises and the card still answers: the breaker records
+      the failure and the bucket bisects, its clean sub-buckets on the
+      card; the isolated rows go to ``quarantined``;
+    * dispatch raises and the card does not answer: ``CardLost`` at
+      once, with no bisection.
+
+    Nothing is re-checked on the host.  Every call is one
+    flight-recorded dispatch: the record lands in ``sink`` (dispatch
+    order) and its span carries the replay's corr carriers.  A
+    successful dispatch's record is sealed at the readback, which
+    decides its final outcome (flight.defer); a raising one is sealed at
+    once.  ``dispatch_ms`` is the host's enqueue time."""
+    brk = _breaker.get("verify")
+    corr_ids = _flight.corr_ids(corrs)
+
+    def attempt(b: _Bucket):
+        def run(lanes):
+            try:
+                return device_fn(_subbucket(b, lanes))
+            except Exception as e:
+                if not _card_answers(device):
+                    raise CardLost(f"the card stopped answering: {e}") from e
+                raise
+        return run
+
+    def _dispatch_inner(b: _Bucket, rec: dict) -> torch.Tensor:
+        n = len(b.sel)
+        if not brk.allow():
+            raise _breaker.BreakerOpen("verify", brk.retry_in_s())
+        try:
+            _fault.fire("dispatch", "verify")
+            rec["h2d_bytes"] = b.staged_bytes
+            _M_TRANSFER.labels("verify", "h2d").inc(b.staged_bytes)
+            ok = device_fn(b)
+        except Exception as e:
+            brk.record_failure()
+            if not _card_answers(device):
+                raise CardLost(f"the card stopped answering: {e}") from e
+            rec["outcome"] = "bisect"
+            rec["error"] = type(e).__name__
+            log.warning("verify bucket dispatch failed (%s); bisecting %d "
+                        "lanes", e, n)
+            parts, bad = _quarantine.bisect(np.arange(n), attempt(b),
+                                            family="verify",
+                                            fatal=(CardLost,))
+            quarantined.extend(b.sel[np.asarray(bad, np.int64)].tolist())
+            return _merge(n, parts, device)
+        brk.record_success()
+        rec["outcome"] = "ok"
+        return ok
+
+    def dispatch(b: _Bucket, queue_wait: float = 0.0) -> torch.Tensor:
+        rec = _flight.begin(
+            "verify", corr_ids=corr_ids,
+            shape=(len(b.sel), int(b.blocks.shape[1])), n_real=len(b.sel),
+            lanes=len(b.sel), queue_wait_ms=queue_wait * 1e3,
+            prep_ms=b.prep_seconds * 1e3, breaker_state=brk.state)
+        if sink is not None:
+            sink.append(rec)
+        t0 = time.perf_counter()
+        try:
+            with trace.span("verify/dispatch", corr=corrs,
+                            dispatch_id=rec["dispatch_id"]):
+                with trace.annotation("verify/dispatch", device):
+                    ok = _dispatch_inner(b, rec)
+        except BaseException as e:
+            if rec["outcome"] is None:
+                rec["outcome"] = "error"
+            _flight.finish(rec,
+                           dispatch_ms=(time.perf_counter() - t0) * 1e3,
+                           error=type(e).__name__)
+            raise
+        rec["dispatch_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        _flight.defer(rec)
+        return ok
+
+    return dispatch
+
+
+_DONE = object()
+
+
+def _to_host(oks: list) -> list:
+    """Every bucket's verdict tensor on the host: ONE device-to-host
+    transfer for all of them."""
+    flat = torch.cat([ok.reshape(-1) for ok in oks]).cpu().numpy()
+    out, pos = [], 0
+    for ok in oks:
+        out.append(flat[pos:pos + ok.numel()])
+        pos += ok.numel()
+    return out
+
+
+def _run_pipeline(items: VerifyItems, roi: np.ndarray, bucket: int,
+                  depth: int, device_fn, device: torch.device,
+                  quarantined: list, corrs=()):
+    """Sort signatures by row, cut self-contained buckets, and stream
+    them: a producer thread preps bucket i+1 while bucket i is dispatched
+    to the card.  ``depth`` bounds the prepared-bucket queue; depth 0 is
+    serial (prep inline on the dispatch thread, the baseline the overlap
+    metrics are read against).  Returns (out, n_buckets, stage seconds).
+    """
     N = len(items)
-    if stats is not None:
-        stats["buckets"] = 0
-    if N == 0:
-        return np.zeros(0, bool)
-    roi = items.row_index()
     order = np.argsort(roi, kind="stable")
     roi_sorted = roi[order]
     chunks = _plan_buckets(roi_sorted, bucket)
-    sels, oks = [], []
-    for c in chunks:
-        b = _prep_bucket(items, order, roi_sorted, c)
-        oks.append(verify_bucket(b, dev, engine))
-        sels.append(b.sel)
+    # every bucket dispatch (injected test doubles included) runs under
+    # the breaker and quarantine, and is one flight-recorded dispatch
+    # whose record lands in `flight_recs` (dispatch order)
+    flight_recs: list[dict] = []
+    dispatch = _wrap_resilient(device_fn, device, quarantined, corrs=corrs,
+                               sink=flight_recs)
+    prep = functools.partial(_prep_bucket, items, order, roi_sorted,
+                             pin=device.type == "cuda", corrs=corrs)
+
     out = np.zeros(N, bool)
-    out[np.concatenate(sels)] = torch.cat(oks).cpu().numpy()
+    # pending holds (sel, verdicts) only: keeping the _Bucket would pin
+    # every bucket's host operands (about the re-packed store) until the
+    # final readback
+    pending: list[tuple[np.ndarray, torch.Tensor]] = []
+    t_prep = t_stall = t_dispatch = 0.0
+    staged_bytes = 0
+
+    def run(b: _Bucket, wait: float, visible: float) -> None:
+        nonlocal t_prep, t_stall, t_dispatch, staged_bytes
+        t_prep += b.prep_seconds
+        t_stall += visible
+        t0 = time.perf_counter()
+        ok = dispatch(b, queue_wait=wait)
+        t_dispatch += time.perf_counter() - t0
+        staged_bytes += b.staged_bytes
+        pending.append((b.sel, ok))
+
+    try:
+        if depth > 0 and len(chunks) > 1:
+            q: _queue.Queue = _queue.Queue(maxsize=depth)
+            stop = threading.Event()  # the dispatch loop ended: stop
+
+            def _put(item) -> bool:
+                # stop-aware: a producer raced by a dispatch failure
+                # never blocks forever on a full queue nobody drains
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.05)
+                        return True
+                    except _queue.Full:
+                        pass
+                return False
+
+            def _producer():
+                try:
+                    for c in chunks:
+                        if stop.is_set():
+                            return
+                        _fault.fire("producer", "verify")
+                        if not _put(prep(c)):
+                            return
+                    _put(_DONE)
+                except BaseException as e:  # surfaces on the dispatch thread
+                    _put(e)
+
+            th = threading.Thread(target=_producer, name="replay-prep",
+                                  daemon=True)
+            th.start()
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    b = q.get()
+                    wait = time.perf_counter() - t0
+                    if b is _DONE:
+                        t_stall += wait
+                        break
+                    if isinstance(b, BaseException):
+                        raise b
+                    _M_R_QDEPTH.observe(q.qsize() + 1)
+                    run(b, wait, wait)
+            finally:
+                # a producer parked on a full queue after the dispatch
+                # loop raised is told to stop and drained until it exits
+                stop.set()
+                while th.is_alive():
+                    try:
+                        q.get_nowait()
+                    except _queue.Empty:
+                        pass
+                    th.join(timeout=0.005)
+        else:
+            for c in chunks:
+                b = prep(c)
+                run(b, 0.0, b.prep_seconds)   # serial: all prep is visible
+
+        # the ONLY device-to-host transfer of the replay
+        t0 = time.perf_counter()
+        brk = _breaker.get("verify")
+        with trace.span("replay/readback", corr=corrs, buckets=len(pending)):
+            try:
+                host, lost = _to_host([ok for _, ok in pending]), None
+            except Exception as e:
+                host, lost = None, e
+            t_xfer = time.perf_counter() - t0
+            for i, ((sel, _), rec) in enumerate(zip(pending, flight_recs)):
+                t0b = time.perf_counter()
+                try:
+                    _fault.fire("readback", "verify")
+                    if lost is not None:
+                        raise lost
+                except Exception as e:
+                    brk.record_failure()
+                    rec["outcome"] = "error"
+                    rec["error"] = type(e).__name__
+                    raise
+                out[sel] = host[i]
+                rec["d2h_bytes"] = host[i].nbytes
+                _M_TRANSFER.labels("verify", "d2h").inc(host[i].nbytes)
+                # each bucket waited for the one transfer, then its slice
+                rec["readback_ms"] = round(
+                    (t_xfer + time.perf_counter() - t0b) * 1e3, 3)
+                _flight.finish(rec)
+        t_readback = time.perf_counter() - t0
+    finally:
+        # records of buckets whose readback never came (the replay
+        # raised) are sealed too; finish() leaves sealed ones alone
+        for rec in flight_recs:
+            _flight.finish(rec)
+
+    _M_R_READBACK.inc(t_readback)
+    _M_R_PREP.inc(t_prep)
+    _M_R_STALL.inc(t_stall)
+    _M_R_DISPATCH.inc(t_dispatch)
+    if t_prep > 0:
+        _M_R_OVERLAP.observe(max(0.0, 1.0 - t_stall / t_prep))
+    lanes = sum(len(sel) for sel, _ in pending)
+    _M_LANES.labels("verify").inc(lanes)
+    _M_LANES.labels("hash").inc(lanes)
+    _M_DEVICE_BYTES.inc(staged_bytes)
+    return out, len(chunks), {"prep": t_prep, "prep_stall": t_stall,
+                              "dispatch": t_dispatch,
+                              "readback": t_readback}
+
+
+@torch.inference_mode()
+def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
+                 device=None, stats: dict | None = None,
+                 engine: str = E.DEFAULT_ENGINE, *, depth: int = 2,
+                 device_fn=None, corr=None) -> np.ndarray:
+    """Verify every signature of `items` on `device` (the card unless
+    device="cpu") under the verify engine `engine`.  Returns bool (N,).
+
+    The replay streams self-contained buckets: a producer thread preps
+    bucket i+1 (host numpy, pinned for the card) while bucket i is
+    dispatched, ``depth`` buckets ahead (0: serial).  The verdicts stay
+    on the card until one readback at the end.  Every bucket dispatch is
+    supervised by the "verify" breaker and quarantine bisection
+    (``_wrap_resilient``), and is one flight record; the
+    ``clntpu_replay_*`` counters split the time into prep, prep stall,
+    dispatch and readback.
+
+    Nothing is re-checked on the host: an open breaker raises
+    ``BreakerOpen``, a failed readback raises, and rows isolated by
+    bisection raise ``Quarantined`` once every other bucket is done (its
+    ``verdicts`` hold every other row's result, the isolated rows
+    False).
+
+    `device_fn` replaces the bucket dispatcher (tests): it takes a
+    bucket and returns its (n,) bool verdict tensor.  `stats`, if given,
+    receives the bucket count and the stage seconds; ``corr`` (a
+    trace.Carrier or a list of them) rides every span and flight record
+    of the replay.  Inference mode is thread-local, so it is set here:
+    the live ingest calls this on a worker thread."""
+    dev = D.resolve(device)
+    N = len(items)
     if stats is not None:
-        stats["buckets"] = len(chunks)
+        stats.update(buckets=0, prep=0.0, prep_stall=0.0, dispatch=0.0,
+                     readback=0.0)
+    if N == 0:
+        return np.zeros(0, bool)
+    t_start = time.perf_counter()
+    corrs = trace.as_carriers(corr)
+    roi = items.row_index()
+    if device_fn is None:
+        def device_fn(b):
+            _M_R_BUCKETS.labels("card").inc()
+            return verify_bucket(b, dev, engine)
+    quarantined: list[int] = []
+    out, n_buckets, stages = _run_pipeline(
+        items, roi, bucket, depth, device_fn, dev, quarantined, corrs=corrs)
+    if stats is not None:
+        stats["buckets"] = n_buckets
+        stats.update(stages)
+    n_over = int((items.n_blocks[roi] == 0).sum())
+    if n_over:
+        _M_OVERSIZED.inc(n_over)
+    _M_BATCH_SIGS.observe(N)
+    _M_OCCUPANCY.observe(N / (n_buckets * bucket))
+    _M_FLUSH_SECONDS.observe(time.perf_counter() - t_start)
     tag_ok = (items.pubkeys[:, 0] == 2) | (items.pubkeys[:, 0] == 3)
-    return out & tag_ok
+    out &= tag_ok
+    if quarantined:
+        rows = sorted(quarantined)
+        out[rows] = False
+        raise _quarantine.Quarantined("verify", rows, out)
+    return out
 
 
 def host_verify_items(items: VerifyItems, buf: np.ndarray,
@@ -399,17 +824,24 @@ def extract_store(idx: StoreIndex):
 
 
 def verify_store(idx: StoreIndex, bucket: int = DEFAULT_BUCKET,
-                 device=None,
-                 engine: str = E.DEFAULT_ENGINE) -> StoreVerifyResult:
+                 device=None, engine: str = E.DEFAULT_ENGINE, *,
+                 depth: int = 2) -> StoreVerifyResult:
     """Verify every signature on every alive gossip message of a store
     on `device` (the card unless device="cpu") under the verify engine
-    `engine`."""
+    `engine`, the replay's buckets prepped `depth` ahead.  ``seconds``
+    holds extract and verify, and the verify's stages: prep, prep_stall,
+    dispatch and readback."""
     dev = D.resolve(device)
     t0 = time.perf_counter()
-    items, (n_ca, n_na, n_cu), n_alive = extract_store(idx)
+    with trace.span("gossip/extract", records=int(len(idx))):
+        items, (n_ca, n_na, n_cu), n_alive = extract_store(idx)
     t1 = time.perf_counter()
     stats: dict = {}
-    ok = verify_items(items, bucket, dev, stats, engine)
+    with trace.span("gossip/verify", sigs=int(len(items))):
+        # the replay's enqueue point: every bucket's prep, dispatch and
+        # readback span carries this carrier
+        ok = verify_items(items, bucket, dev, stats, engine, depth=depth,
+                          corr=trace.new_corr())
     t2 = time.perf_counter()
     ca_ok = ok[:n_ca].reshape(4, -1).all(axis=0) if n_ca \
         else np.zeros(0, bool)
@@ -417,4 +849,6 @@ def verify_store(idx: StoreIndex, bucket: int = DEFAULT_BUCKET,
         n_records=n_alive, n_sigs=len(items), ca_valid=ca_ok,
         cu_valid=ok[n_ca + n_na:], na_valid=ok[n_ca:n_ca + n_na],
         sig_ok=ok, items=items, buckets=stats["buckets"],
-        seconds={"extract": t1 - t0, "verify": t2 - t1})
+        seconds={"extract": t1 - t0, "verify": t2 - t1,
+                 **{k: stats[k] for k in ("prep", "prep_stall", "dispatch",
+                                          "readback")}})

@@ -4,13 +4,15 @@ After ``threshold`` consecutive failures a breaker opens; after an
 exponential backoff (with deterministic per-family jitter, so breakers of
 different families do not probe in lockstep) it half-opens and lets
 exactly one probe through: success closes it, failure re-opens it with a
-doubled backoff.  Transitions are emitted on the events bus (topic
-``breaker_transition``).
+doubled backoff.  Transitions are counted (``clntpu_breaker_*``) and
+emitted on the events bus (topic ``breaker_transition``).
 
-In this port nothing trips a breaker yet: the overload controller reads
-its state for the retry hint and the snapshot.  The knobs are
-constructor arguments with the defaults threshold 5, backoff 1.0 s and
-ceiling 30.0 s.
+The "verify" breaker supervises the replay's bucket dispatches and
+hsmd's sig-checks, the "sign" breaker hsmd's batched sign.  An open
+breaker makes those dispatches raise ``BreakerOpen`` (or, where the
+caller opts in, re-check on the host).  The knobs are constructor
+arguments with the defaults threshold 5, backoff 1.0 s and ceiling
+30.0 s.
 """
 from __future__ import annotations
 
@@ -18,15 +20,28 @@ import random
 import threading
 import time
 
+from ..obs import families as _f
 from ..utils import events
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+_STATE_CODE = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 2.0}
 
 THRESHOLD = 5
 BACKOFF_S = 1.0
 MAX_BACKOFF_S = 30.0
 # cap the exponent so a breaker that flaps for days can't overflow
 _MAX_TRIP_EXP = 16
+
+
+class BreakerOpen(RuntimeError):
+    """A dispatch refused because its family's breaker is open: retry
+    after ``retry_in_s`` seconds."""
+
+    def __init__(self, family: str, retry_in_s: float):
+        super().__init__(f"{family} breaker open; retry in "
+                         f"{retry_in_s:.3f}s")
+        self.family = family
+        self.retry_in_s = retry_in_s
 
 
 class CircuitBreaker:
@@ -50,6 +65,7 @@ class CircuitBreaker:
         self._seq = 0
         self._retry_at = 0.0
         self._open_backoff = 0.0
+        _f.BREAKER_STATE.labels(family).set(_STATE_CODE[CLOSED])
 
     def allow(self) -> bool:
         """True: the caller may dispatch.  An open breaker whose backoff
@@ -62,6 +78,8 @@ class CircuitBreaker:
                 if self.state == OPEN and self._clock() >= self._retry_at:
                     evt = self._transition(HALF_OPEN)
                     return True
+                # open and waiting, or a half-open probe in flight
+                _f.BREAKER_SHORT_CIRCUITS.labels(self.family).inc()
                 return False
         finally:
             self._emit(evt)
@@ -75,6 +93,7 @@ class CircuitBreaker:
         self._emit(evt)
 
     def record_failure(self) -> None:
+        _f.BREAKER_FAILURES.labels(self.family).inc()
         evt = None
         with self._lock:
             self.consecutive_failures += 1
@@ -103,6 +122,8 @@ class CircuitBreaker:
         of transition order."""
         self.state = to
         self._seq += 1
+        _f.BREAKER_STATE.labels(self.family).set(_STATE_CODE[to])
+        _f.BREAKER_TRANSITIONS.labels(self.family, to).inc()
         return {
             "family": self.family, "to": to, "seq": self._seq,
             "consecutive_failures": self.consecutive_failures,
@@ -114,6 +135,13 @@ class CircuitBreaker:
     def _emit(evt: dict | None) -> None:
         if evt is not None:
             events.emit("breaker_transition", evt)
+
+    def retry_in_s(self) -> float:
+        """Seconds until an open breaker half-opens (0.0 otherwise)."""
+        with self._lock:
+            if self.state != OPEN:
+                return 0.0
+            return max(0.0, self._retry_at - self._clock())
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -157,6 +185,10 @@ def get(family: str) -> CircuitBreaker:
             if brk is None:
                 brk = _breakers[family] = CircuitBreaker(family)
     return brk
+
+
+def all_breakers() -> dict[str, CircuitBreaker]:
+    return dict(_breakers)
 
 
 def reset_for_tests() -> None:

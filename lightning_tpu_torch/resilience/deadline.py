@@ -1,12 +1,16 @@
 """Dispatch deadlines and supervised-loop restart backoff.
 
 * ``guard(aw, deadline_s, family, seam)`` bounds an awaitable; a blown
-  deadline is emitted on the events bus and raises ``DeadlineExceeded``,
-  which the caller's own failure handling takes like any other error.
+  deadline is counted (``clntpu_deadline_exceeded_total{family,seam}``),
+  emitted on the events bus and raises ``DeadlineExceeded``, which the
+  caller's own failure handling takes like any other error.
+* ``note_exceeded`` counts a deadline that a thread-side caller manages
+  itself (the replay's wait on its prepared-bucket queue).
   The work under ``asyncio.to_thread`` cannot be cancelled: the guard
   frees the caller, the worker runs on until it returns.
 * ``RestartBackoff`` paces the restarts of a supervised loop:
-  exponential from ``base`` to ``cap``, reset after a healthy iteration.
+  exponential from ``base`` to ``cap``, reset after a healthy iteration;
+  ``note_restart`` counts one (``clntpu_loop_restarts_total{loop}``).
 
 A deadline is off (None) unless the caller sets one.
 """
@@ -15,6 +19,7 @@ from __future__ import annotations
 import asyncio
 import logging
 
+from ..obs import families as _f
 from ..utils import events
 
 log = logging.getLogger("lightning_tpu_torch.resilience.deadline")
@@ -24,6 +29,15 @@ class DeadlineExceeded(RuntimeError):
     pass
 
 
+def note_exceeded(family: str, seam: str, deadline_s: float) -> None:
+    """Count and emit a blown deadline."""
+    _f.DEADLINE_EXCEEDED.labels(family, seam).inc()
+    events.emit("deadline_exceeded", {"family": family, "seam": seam,
+                                      "deadline_s": deadline_s})
+    log.warning("%s:%s dispatch deadline (%.3fs) exceeded",
+                family, seam, deadline_s)
+
+
 async def guard(aw, deadline_s: float | None, family: str, seam: str):
     """Await ``aw`` within ``deadline_s`` seconds (no bound when None)."""
     if deadline_s is None:
@@ -31,10 +45,7 @@ async def guard(aw, deadline_s: float | None, family: str, seam: str):
     try:
         return await asyncio.wait_for(aw, deadline_s)
     except asyncio.TimeoutError:
-        events.emit("deadline_exceeded", {"family": family, "seam": seam,
-                                          "deadline_s": deadline_s})
-        log.warning("%s:%s dispatch deadline (%.3fs) exceeded",
-                    family, seam, deadline_s)
+        note_exceeded(family, seam, deadline_s)
         raise DeadlineExceeded(
             f"{family}:{seam} dispatch exceeded {deadline_s:g}s deadline"
         ) from None
@@ -58,7 +69,8 @@ class RestartBackoff:
 
 
 def note_restart(loop: str, error: BaseException, delay: float) -> None:
-    """Emit one supervised-loop restart."""
+    """Count and emit one supervised-loop restart."""
+    _f.LOOP_RESTARTS.labels(loop).inc()
     events.emit("loop_restart", {"loop": loop, "error": repr(error),
                                  "restart_delay_s": round(delay, 3)})
     log.error("%s loop error; restarting in %.2fs", loop, delay,

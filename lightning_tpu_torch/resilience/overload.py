@@ -4,8 +4,9 @@
   a high watermark over its family's backlog (queued plus in-flight
   units).  NORMAL below the low one, ELEVATED between, SATURATED at or
   above the high one; once saturated it stays so until the backlog falls
-  below the low watermark.  Transitions are emitted on the events bus
-  (topic ``overload_state``).
+  below the low watermark.  Transitions are counted
+  (``clntpu_overload_*``) and emitted on the events bus (topic
+  ``overload_state``).
 * **An adaptive flush window.**  As pressure rises the consumer's size
   trigger and latency budget widen from their base up to
   ``FLUSH_WIDEN`` times it, so batches grow when dispatch overhead
@@ -14,9 +15,10 @@
   own-node traffic (PRIO_OWN) outranks fresh third-party channel data
   (PRIO_FRESH), which outranks node announcements (PRIO_BULK).  Each
   class above BULK keeps one more ``high_wm // 4`` band, so the queue is
-  bounded at ``high_wm + 2 * (high_wm // 4)``.  Every shed is recorded
-  with the message's identity in a bounded ring, so shed traffic can be
-  asked for again.
+  bounded at ``high_wm + 2 * (high_wm // 4)``.  Every shed is counted
+  (``clntpu_shed_total{family,priority,reason}``) and recorded with the
+  message's identity in a bounded ring, so shed traffic can be asked
+  for again.
 * **Backpressure.**  ``wait_capacity()`` pauses a transport while the
   family is saturated, at most ``BACKPRESSURE_MAX_S`` a message; all
   waiters wake together when the backlog drains below the low watermark.
@@ -33,6 +35,7 @@ import asyncio
 import collections
 import time
 
+from ..obs import families as _f
 from ..utils import events
 
 # max widening factor of the flush size and window under full pressure
@@ -90,6 +93,7 @@ class OverloadController:
         self._drain_rate = 0.0
         self._drained = asyncio.Event()
         self._drained.set()
+        _f.OVERLOAD_STATE.labels(family).set(NORMAL)
 
     # -- backlog and ladder -------------------------------------------------
 
@@ -109,6 +113,9 @@ class OverloadController:
             state = NORMAL
         if state != self.state:
             self.state = state
+            _f.OVERLOAD_STATE.labels(self.family).set(state)
+            _f.OVERLOAD_TRANSITIONS.labels(self.family,
+                                           STATE_NAMES[state]).inc()
             events.emit("overload_state",
                         {"family": self.family,
                          "state": STATE_NAMES[state],
@@ -138,6 +145,7 @@ class OverloadController:
         """Count one shed message and record it with its identity
         ``key`` (kind, scid, node id, timestamp...)."""
         pname = PRIO_NAMES[priority]
+        _f.SHED.labels(self.family, pname, reason).inc()
         k = (pname, reason)
         self.shed_counts[k] = self.shed_counts.get(k, 0) + 1
         rec = {"family": self.family, "priority": pname, "reason": reason}
@@ -174,12 +182,15 @@ class OverloadController:
         if self.state != SATURATED:
             return 0.0
         bound = BACKPRESSURE_MAX_S if max_wait is None else max_wait
+        _f.BACKPRESSURE_WAITS.labels(self.family).inc()
         t0 = self.now()
         try:
             await asyncio.wait_for(self._drained.wait(), bound)
         except asyncio.TimeoutError:
             pass
-        return max(0.0, self.now() - t0)
+        waited = max(0.0, self.now() - t0)
+        _f.BACKPRESSURE_WAIT_SECONDS.labels(self.family).observe(waited)
+        return waited
 
     # -- drain rate and retry hint ------------------------------------------
 

@@ -483,6 +483,103 @@ def _route_graph(small_store):
     return gossmap.from_store(store.load_store(small_store[0]))
 
 
+def _replay_items(small_store):
+    from lightning_tpu_torch.gossip import store, verify
+
+    path, info = small_store
+    items, _, _ = verify.extract_store(store.load_store(path))
+    return items, info["expected_sig_ok"]
+
+
+def test_pipelined_replay_on_card_equals_serial(small_store):
+    """verify_items on the card at depth 2 (producer thread, pinned
+    operands, asynchronous uploads) equals depth 0 and the seeded
+    verdicts, with K1-K3 launched once a bucket either way."""
+    from lightning_tpu_torch.gossip import verify
+
+    items, expected = _replay_items(small_store)
+    for depth in (0, 2):
+        H.reset_launches()
+        stats: dict = {}
+        ok = verify.verify_items(items, 512, device="cuda", stats=stats,
+                                 depth=depth)
+        assert np.array_equal(ok, expected)
+        assert stats["buckets"] > 2
+        assert H.launch_counts() == {
+            k.__name__: stats["buckets"] * (
+                k.__name__ in ENGINE_KERNELS["pallas_fbj+pp"])
+            for k in H.KERNELS}
+
+
+def test_fault_injected_buckets_bisect_on_the_card(small_store):
+    """A dispatch fault on every other bucket bisects, and the bisection's
+    dispatches run on the card: K3 launches once for every (sub-)bucket
+    that completed.  Rows a dispatcher rejects raise Quarantined, every
+    other verdict the seeded one, the clean sub-buckets on the card."""
+    from lightning_tpu_torch.gossip import verify
+    from lightning_tpu_torch.obs import flight
+    from lightning_tpu_torch.resilience import breaker
+    from lightning_tpu_torch.resilience import faultinject as fi
+    from lightning_tpu_torch.resilience import quarantine
+
+    items, expected = _replay_items(small_store)
+    poison: set = set()
+    done = []
+
+    def dispatcher(b):
+        if poison & set(b.sel.tolist()):
+            raise ValueError("row rejected")
+        done.append(len(b.sel))
+        return verify.verify_bucket(b, torch.device("cuda"))
+
+    breaker.reset_for_tests()
+    flight.reset_for_tests()
+    H.reset_launches()
+    with fi.arm("dispatch:verify:raise:0.5"):
+        ok = verify.verify_items(items, 512, device="cuda",
+                                 device_fn=dispatcher)
+    assert np.array_equal(ok, expected)
+    assert H.launch_counts()["glv_scan"] == len(done)
+    assert "bisect" in {r["outcome"] for r in flight.recent("verify")}
+    poison.update({3, 700, 701, len(items) - 1})
+    done.clear()
+    H.reset_launches()
+    with pytest.raises(quarantine.Quarantined) as e:
+        verify.verify_items(items, 512, device="cuda", device_fn=dispatcher)
+    assert e.value.rows == sorted(poison)
+    keep = np.ones(len(items), bool)
+    keep[e.value.rows] = False
+    assert np.array_equal(e.value.verdicts[keep], expected[keep])
+    assert H.launch_counts()["glv_scan"] == len(done) > 0
+    breaker.reset_for_tests()
+
+
+def test_out_of_memory_in_the_first_dispatch_bisects_and_completes(
+        small_store):
+    from lightning_tpu_torch.gossip import verify
+    from lightning_tpu_torch.obs import flight
+    from lightning_tpu_torch.resilience import breaker
+
+    items, expected = _replay_items(small_store)
+    calls = []
+
+    def oom_once(b):
+        calls.append(len(b.sel))
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (stub)")
+        return verify.verify_bucket(b, torch.device("cuda"))
+
+    breaker.reset_for_tests()
+    flight.reset_for_tests()
+    ok = verify.verify_items(items, 512, device="cuda", device_fn=oom_once)
+    assert np.array_equal(ok, expected)
+    first = flight.recent("verify")[0]
+    assert (first["outcome"], first["error"]) == ("bisect",
+                                                  "OutOfMemoryError")
+    assert calls[1] == calls[0]          # the whole bucket, on the card
+    breaker.reset_for_tests()
+
+
 def test_route_sweep_kernel_matches_plain(small_store):
     """R1 against its plain version on the card at a ragged batch (67
     queries): dist at the source, via and the overflow flag equal, with

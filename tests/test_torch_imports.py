@@ -73,7 +73,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "lightning_tpu_torch.routing.hopper_route",
                 "lightning_tpu_torch.routing.device",
                 "lightning_tpu_torch.routing.mcf",
-                "lightning_tpu_torch.routing.mcf_device"):
+                "lightning_tpu_torch.routing.mcf_device",
+                "lightning_tpu_torch.utils.trace",
+                "lightning_tpu_torch.utils.logring",
+                "lightning_tpu_torch.obs",
+                "lightning_tpu_torch.obs.registry",
+                "lightning_tpu_torch.obs.collector",
+                "lightning_tpu_torch.obs.families",
+                "lightning_tpu_torch.obs.flight",
+                "lightning_tpu_torch.resilience.faultinject",
+                "lightning_tpu_torch.resilience.quarantine"):
         assert mod in got["modules"]
 
 

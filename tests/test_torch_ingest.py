@@ -283,7 +283,7 @@ def test_flush_error_goes_to_the_restart_loop(tmp_path, monkeypatch,
     """A failing verify is counted as flush_error and emitted on the
     events bus; the loop restarts; nothing is accepted or verified
     elsewhere."""
-    def failing(items, bucket, device=None):
+    def failing(items, bucket, device=None, **kw):
         if fault == "raise":
             raise RuntimeError("device lost")
         import time
