@@ -12,7 +12,9 @@ Phases, each fatal on failure:
    kernels (the verify path's K1-K6, the sign path's S1 and S2, the
    routing path's R1 and R2) built for sm_90a with nvcc, all at once,
    with each one's ptxas report, and the blocks an SM holds of K2-K6, S1,
-   S2, R1 and R2;
+   S2, R1 and R2; the CALL instructions in R1's and R2's SASS
+   (cuobjdump -sass; a call of the int64 division routine is one), which
+   must be none;
 2. each kernel against its plain PyTorch version on the card, at the
    bucket size, a ragged batch (bucket + 37) and edge inputs, compared
    exactly after normalization mod p or n: K5 also with every digit 0
@@ -83,10 +85,15 @@ Phases, each fatal on failure:
    phase runs N times, each after a reading of K3, and prints the
    spread.
 7. routing over phase 3's graph (100,000 channels, 12,500 nodes by
-   default): R1 against its plain version on 64 queries and R2 on 8 of
-   the mcf mix and 8 multi-part ones (mismatches counted exactly, each
-   R2 dispatch timed); then, with the launch counters set to 0 just
-   before and read just after, 1,093 getroute queries (bench.py route's
+   default): R1 against its plain version on the 1,024 queries of the
+   route mix, 64 a launch, with each query's sweeps run and edges priced
+   (median and maximum), and R2 on 8 of the mcf mix and 8 multi-part
+   ones with each query's rounds and arcs visited (mismatches counted
+   exactly, each R2 dispatch timed); each kernel's time at every cluster
+   size (R2's labels in shared memory where they fit), each size equal
+   to the plain version, and the clusters the card holds at once; then,
+   with the launch counters set to 0 just before and read just after,
+   1,093 getroute queries (bench.py route's
    1,024, 64 log-uniform amounts with some excluded scids, five named
    edge cases) through solve_batch and 1,024 through RouteService, and
    66 getroutes queries (bench.py mcf's 64, one with reservations,
@@ -1294,6 +1301,47 @@ def same_route_answer(res, ans):
     return isinstance(ans, BaseException)
 
 
+def cluster_sizes(HR, r1_args, r1_want, in_off, arcs, r2_lanes, r2_want,
+                  n_mcf, card, torch):
+    """Each routing kernel at every cluster size (R2's node entries in
+    shared memory where they fit, as its wrapper decides): every size
+    equal to the plain version, then its ms a call (CUDA events, 10 calls
+    after 2 warm-ups) and the clusters the card holds at once.  Returns
+    {kernel: {"C=<size>": ms}}."""
+    from lightning_tpu_torch import _build
+
+    runs = {}
+    for C in HR.CLUSTER_SIZES:
+        runs[("route_sweep", C)] = (
+            (lambda C=C: HR.route_sweep(*r1_args, in_off=in_off,
+                                        _cluster=C)),
+            r1_want, _build.lib("route_sweep").route_sweep_max_clusters(C),
+            "global")
+        per, _ = HR.split(n_mcf, C)
+        shared = HR.r2_shared(per)
+        runs[("mcf_ssp", C)] = (
+            (lambda C=C: HR.mcf_solve(*arcs, *r2_lanes, n_mcf,
+                                      _cluster=C)),
+            r2_want, _build.lib("mcf_ssp").mcf_ssp_max_clusters(
+                C, per, int(shared)), "shared" if shared else "global")
+    out = {"route_sweep": {}, "mcf_ssp": {}}
+    for (k, C), (fn, want, fit, where) in runs.items():
+        got = fn()
+        bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+        ms = time_cuda(torch, fn, reps=10)
+        log(f"  {k} C={C} (labels in {where} memory): {ms:.4f} ms/call, "
+            f"{fit} clusters at once, {bad} mismatching elements, on "
+            f"{card}")
+        assert bad == 0, f"{k} C={C} disagrees with its plain version"
+        out[k][f"C={C}"] = ms
+    for k, C in (("route_sweep", HR.R1_CLUSTER),
+                 ("mcf_ssp", HR.R2_CLUSTER)):
+        best = min(out[k], key=out[k].get)
+        log(f"{k}: fastest {best} ({out[k][best]:.4f} ms); the default is "
+            f"a cluster of {C}")
+    return out
+
+
 def routing(args, g, dev, card, torch):
     """Phase 7: getroute (R1) and getroutes (R2) over phase 3's graph on
     the card.  Returns the two kernels' records for the kernels line."""
@@ -1322,22 +1370,42 @@ def routing(args, g, dev, card, torch):
     # 7.1: each kernel against its plain version on the card
     rmix = route_mix(RD, g, 11, 1024)
     B = RD.ROUTE_BATCH
-    lanes = [np.stack([planes.edge_ok_mask()] * B),
-             np.array([g.node_index(q.source) for q in rmix[:B]], np.int32),
-             np.array([g.node_index(q.destination) for q in rmix[:B]],
-                      np.int32),
-             np.full(B, 1_000_000, np.int64), np.full(B, 18, np.int64),
-             np.full(B, 10, np.int64)]
-    r1_args = (*plane_args, *(torch.as_tensor(a, device=dev) for a in lanes),
-               planes.n_pad, RD.DEFAULT_MAX_HOPS)
-    got = HR.route_sweep(*r1_args)
-    want = HR.route_sweep_plain(*r1_args)
-    r1_bad = [int((a != b).sum()) for a, b in zip(got, want)]
-    r1_err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                 zip(got, want))
-    log(f"R1 against route_sweep_plain, {B} queries: mismatching elements "
-        f"(dist_src, via, ovf) {r1_bad}; {int((got[0] < HR.INF_COST).sum())}"
-        f" reachable, {int(got[2].sum())} overflow")
+    in_off = planes.dev["in_off"]
+
+    def r1_lanes(chunk):
+        lanes = [np.stack([planes.edge_ok_mask()] * len(chunk)),
+                 np.array([g.node_index(q.source) for q in chunk], np.int32),
+                 np.array([g.node_index(q.destination) for q in chunk],
+                          np.int32),
+                 np.full(len(chunk), 1_000_000, np.int64),
+                 np.full(len(chunk), 18, np.int64),
+                 np.full(len(chunk), 10, np.int64)]
+        return (*plane_args,
+                *(torch.as_tensor(a, device=dev) for a in lanes),
+                planes.n_pad, RD.DEFAULT_MAX_HOPS)
+
+    r1_bad, r1_err, r1_work, r1_reach, r1_ovf = [0, 0, 0], 0, [], 0, 0
+    for start in range(0, len(rmix), B):
+        args_ = r1_lanes(rmix[start:start + B])
+        got = HR.route_sweep(*args_, in_off=in_off, work=r1_work)
+        want = HR.route_sweep_plain(*args_)
+        r1_bad = [x + int((a != b).sum()) for x, a, b in
+                  zip(r1_bad, got, want)]
+        r1_err = max(r1_err, *(int((a.long() - b.long()).abs().max())
+                               for a, b in zip(got, want)))
+        r1_reach += int((got[0] < HR.INF_COST).sum())
+        r1_ovf += int(got[2].sum())
+        if start == 0:
+            r1_args, r1_want = args_, want
+    w1 = torch.cat(r1_work).cpu().numpy()
+    log(f"R1 against route_sweep_plain, the {len(rmix)} queries of the "
+        f"route mix, {B} a launch: mismatching elements (dist_src, via, "
+        f"ovf) {r1_bad}; {r1_reach} reachable, {r1_ovf} overflow; per "
+        f"query sweeps run median {np.median(w1[:, 0]):.1f} max "
+        f"{w1[:, 0].max()} (of {RD.DEFAULT_MAX_HOPS}), edges priced median "
+        f"{np.median(w1[:, 1]):.1f} max {w1[:, 1].max()} (a full sweep "
+        f"prices {planes.e_pad}, all {RD.DEFAULT_MAX_HOPS} "
+        f"{planes.e_pad * RD.DEFAULT_MAX_HOPS})")
     mmix = mcf_mix(MD, g, 13, 64)
     big = [MD.McfQuery(q.source, q.destination,
                        int(gen.integers(10**10, 10**11)), max_parts=8)
@@ -1357,15 +1425,22 @@ def routing(args, g, dev, card, torch):
                   zip(r2_bad, got, want)]
         r2_err = max(r2_err, *(int((a.long() - b.long()).abs().max())
                                for a, b in zip(got, want)))
-    work = torch.cat(r2_work).cpu().tolist()
+        if len(r2_s) == 1:
+            r2_lanes, r2_want = lanes2, want
+    w2 = torch.cat(r2_work).cpu().numpy()
+    work = w2.tolist()
     log(f"R2 against mcf_solve_plain, {MD.MCF_BATCH} queries of the mcf mix "
         f"and {MD.MCF_BATCH} of 10^10-10^11 msat: mismatching elements "
         f"(flow, remaining, nopath, walkfail) {r2_bad}; per query "
-        f"(augmentations, rounds, frontier arcs visited) {work}; one "
+        f"(augmentations, rounds, frontier arcs visited) {work}; rounds "
+        f"median {np.median(w2[:, 1]):.1f} max {w2[:, 1].max()}, arcs "
+        f"median {np.median(w2[:, 2]):.1f} max {w2[:, 2].max()}; one "
         f"dispatch each, {r2_s[0] * 1e3:.1f} and {r2_s[1] * 1e3:.1f} ms")
     assert sum(r1_bad) == 0 and sum(r2_bad) == 0, \
         "a routing kernel disagrees with its plain version"
     assert any(w[0] > 1 for w in work), "no multi-part solve compared"
+    sizes = cluster_sizes(HR, r1_args, r1_want, in_off, arcs, r2_lanes,
+                          r2_want, mp.n_pad, card, torch)
 
     # 7.2: the main path, counts set to 0 just before and read just after
     extra = route_extra(RD, g, gen, 64)
@@ -1507,7 +1582,7 @@ def routing(args, g, dev, card, torch):
     runs = {
         # planes 48 bytes an edge, the mask, the query lanes; dist, via,
         # ovf out
-        "route_sweep": (lambda: HR.route_sweep(*r1_args),
+        "route_sweep": (lambda: HR.route_sweep(*r1_args, in_off=in_off),
                         lambda: HR.route_sweep_plain(*r1_args),
                         48 * E + B * E + 32 * B + B * (8 + 4 * N + 1)),
         # arc endpoints, the arcs by tail, costs and residuals, the query
@@ -1521,6 +1596,13 @@ def routing(args, g, dev, card, torch):
     mism = {"route_sweep": (sum(r1_bad), r1_err),
             "mcf_ssp": (sum(r2_bad), r2_err)}
     wrapper = {"route_sweep": "route_sweep", "mcf_ssp": "mcf_solve"}
+    cluster = {"route_sweep": HR.R1_CLUSTER, "mcf_ssp": HR.R2_CLUSTER}
+    work_median = {
+        "route_sweep": {"sweeps": float(np.median(w1[:, 0])),
+                        "edges_priced": float(np.median(w1[:, 1]))},
+        "mcf_ssp": {"augmentations": float(np.median(w2[:, 0])),
+                    "rounds": float(np.median(w2[:, 1])),
+                    "arcs": float(np.median(w2[:, 2]))}}
     for k, (kern, plain, nbytes) in runs.items():
         ms = time_cuda(torch, kern, reps=20)
         plain_ms = time_cuda(torch, plain, reps=1, warm=1)
@@ -1535,7 +1617,8 @@ def routing(args, g, dev, card, torch):
             "launches": counts[wrapper[k]], "path": "routing",
             "max_abs_err": mism[k][1], "mismatches": mism[k][0], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": None, "cluster": cluster[k],
+            "work": work_median[k], "cluster_ms": sizes[k]})
     log(f"phase 7 in {time.perf_counter() - t_phase:.1f} s")
     return records
 
@@ -1826,6 +1909,13 @@ def main(argv=None) -> int:
               "mcf_ssp"):
         n = getattr(_build.lib(k), f"{k}_blocks_per_sm")()
         log(f"  {k}: {n} blocks resident per SM")
+    for k in ("route_sweep", "mcf_ssp"):
+        calls = _build.sass_calls(_build.sass(_build._lib_path(k)) or {})
+        log(f"  {k} SASS (cuobjdump -sass), per instantiation [CALL "
+            f"instructions, IMAD.HI / IMAD.WIDE multiply-highs]: "
+            f"{json.dumps(calls)}")
+        assert calls and all(c == 0 for c, _ in calls.values()), \
+            f"{k}: a subroutine call (an int64 division?) in its SASS"
 
     # -- phase 2: kernels against their plain versions on the card
     gen = np.random.default_rng(args.seed)

@@ -94,10 +94,7 @@ def _stream() -> ctypes.c_void_p:
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, entry: str, n_ptr: int):
-    fn = getattr(_build.lib(name), f"{entry}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.c_launch(_build.lib(name), entry, n_ptr, 1)
 
 
 def _launch(name: str, *tensors: torch.Tensor, B: int,

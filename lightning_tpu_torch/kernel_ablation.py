@@ -53,7 +53,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -200,23 +199,12 @@ def shipped(table) -> dict[str, str]:
     return out
 
 
-def sass_instructions(lib: str) -> int | None:
-    """The SASS instructions of a kernel library, as ``cuobjdump -sass``
-    lists them (one line with an address comment each); None where the
-    toolkit has no cuobjdump."""
-    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    if not os.path.exists(exe):
-        return None
-    out = subprocess.run([exe, "-sass", lib], capture_output=True,
-                         text=True, check=True).stdout
-    return len(re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+\S", out, re.M))
-
-
 def build(table, outdir: str) -> dict[str, dict[str, tuple]]:
-    """Compile every variant at once; returns kernel -> variant ->
-    (loaded library, ptxas report)."""
+    """Compile every variant at once (a variant's source is a file or
+    its text); returns kernel -> variant -> (loaded library, report: ptxas
+    and the SASS instructions and CALLs, ``cuobjdump -sass``)."""
     os.makedirs(outdir, exist_ok=True)
-    exe, procs = _build.nvcc(), {}
+    jobs = {}
     for k, vs in table.items():
         for v, (src, inc) in vs.items():
             if not os.path.exists(src):
@@ -224,32 +212,22 @@ def build(table, outdir: str) -> dict[str, dict[str, tuple]]:
                 with open(path, "w") as f:
                     f.write(src)
                 src = path
-            lib = os.path.join(outdir, f"lib{k}_{v}.so")
-            cmd = [exe, *_build.NVCC_FLAGS, "-I", inc, "-o", lib, src]
-            procs[k, v] = (lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+            jobs[k, v] = (src, inc, os.path.join(outdir, f"lib{k}_{v}.so"))
+    reports = _build.nvcc_all(jobs)
     built: dict[str, dict[str, tuple]] = {}
-    failed = []
-    for (k, v), (lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{k}/{v}:\n{out}")
-            continue
-        report = " | ".join(ln.strip() for ln in out.splitlines()
-                            if "registers" in ln or "spill" in ln)
-        report += f" | {sass_instructions(lib)} SASS instructions"
+    for (k, v), (_, _, lib) in jobs.items():
+        fns = _build.sass(lib)
+        report = reports[k, v].replace("\n", " | ")
+        if fns is not None:
+            calls = sum(c for c, _ in _build.sass_calls(fns).values())
+            report += (f" | {sum(map(len, fns.values()))} SASS "
+                       f"instructions, {calls} CALL")
         built.setdefault(k, {})[v] = (ctypes.CDLL(lib), report)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return built
 
 
 def launcher(lib: ctypes.CDLL, kernel: str, args: list, B: int):
-    fn = getattr(lib, f"{kernel}_launch")
-    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int,
-                                                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.c_launch(lib, kernel, len(args), 1)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in args]
 
     def run():

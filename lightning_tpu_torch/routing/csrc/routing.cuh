@@ -4,10 +4,12 @@
 //
 // * R1 (route_sweep.cu): one directed edge's price for one query, the
 //   exact int64 cost model of lightning_tpu/routing/device.py
-//   _make_single (:160-178): the overflow ceiling
-//   thr = min(2^61 // max(ppm, 1), 2^61 // max(cd * rf, 1)), the HTLC
-//   window on the amount the receiving node gets, and
-//   cand = d_v + base + a_v * ppm // 10^6 + 1 + a_v * cd * rf // 5259600;
+//   _make_single (:160-178): the overflow guard a > min(2^61 // max(ppm,
+//   1), 2^61 // max(cd * rf, 1)), decided without a division
+//   (rt_unsafe), the HTLC window on the amount the receiving node gets,
+//   and cand = d_v + base + a_v * ppm // 10^6 + 1 + a_v * cd * rf //
+//   5259600 (divisions by constants, which the compiler turns into
+//   multiply-high sequences);
 // * R2 (mcf_ssp.cu): the order-preserving unsigned 64-bit key of a
 //   double, so a float64 minimum can be an integer atomicMin.  -0.0 keys
 //   as +0.0 (reverse arcs carry -cost, so -0.0 occurs); equal doubles
@@ -28,11 +30,31 @@
 #define RT_I64_MAX 0x7fffffffffffffffLL
 #define RT_I32_MAX 0x7fffffff
 
-// The amount past which an edge's products could leave int64 headroom.
+// The amount past which an edge's products could leave int64 headroom,
+// in the reference's division form (the kernel uses rt_unsafe).
 RT_HD int64_t rt_threshold(int64_t ppm, int64_t cdr) {
     int64_t a = RT_OVF_LIMIT / (ppm > 1 ? ppm : 1);
     int64_t b = RT_OVF_LIMIT / (cdr > 1 ? cdr : 1);
     return a < b ? a : b;
+}
+
+// a > 2^61 // p for p >= 1, as a * p > 2^61 on the 128-bit product: for
+// integers a >= 0, a > floor(L / p) exactly when a >= floor(L / p) + 1,
+// which holds exactly when a * p > L.  a <= 0 never passes.
+RT_HD int rt_over(int64_t a, int64_t p) {
+    if (a <= 0) return 0;
+    const uint64_t x = (uint64_t)a, y = (uint64_t)p;
+#ifdef __CUDA_ARCH__
+    const uint64_t hi = __umul64hi(x, y);
+#else
+    const uint64_t hi = (uint64_t)(((unsigned __int128)x * y) >> 64);
+#endif
+    return hi != 0 || x * y > (uint64_t)RT_OVF_LIMIT;
+}
+
+// a > rt_threshold(ppm, cdr), with no division.
+RT_HD int rt_unsafe(int64_t a, int64_t ppm, int64_t cdr) {
+    return rt_over(a, ppm > 1 ? ppm : 1) || rt_over(a, cdr > 1 ? cdr : 1);
 }
 
 // One edge u -> v for one query.  d_v, a_v: the receiving node's
@@ -42,11 +64,11 @@ RT_HD int64_t rt_threshold(int64_t ppm, int64_t cdr) {
 // guard (device.py:169-175).
 RT_HD int rt_price(int64_t d_v, int64_t a_v, int enabled, int64_t base,
                    int64_t ppm, int64_t hmin, int64_t hmax, int64_t cdr,
-                   int64_t thr, int64_t *cand, int64_t *fee, int *ovf) {
+                   int64_t *cand, int64_t *fee, int *ovf) {
     int ok = enabled && d_v < RT_INF_COST && a_v >= hmin
              && (hmax == 0 || a_v <= hmax);
     if (!ok) return 0;
-    if (a_v > thr) {
+    if (rt_unsafe(a_v, ppm, cdr)) {
         *ovf = 1;
         return 0;
     }

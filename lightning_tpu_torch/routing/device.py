@@ -98,7 +98,8 @@ _PARAM_PLANES = ("edge_base", "edge_ppm", "edge_cltv", "edge_hmin",
 
 def _device_plane_args(planes: RoutePlanes) -> tuple:
     """Upload (once per planes revision) and return the planes on
-    ``planes.device``.  A param-refresh revision arrives with the
+    ``planes.device``, with R1's in-edge offsets beside them in
+    ``planes.dev["in_off"]``.  A param-refresh revision arrives with the
     topology uploads carried over, so only the missing planes copy; an
     incremental revision (``patch_idx`` set by with_patched_params)
     scatters JUST the touched lanes.  The scatter is ``index_copy``,
@@ -115,7 +116,7 @@ def _device_plane_args(planes: RoutePlanes) -> tuple:
                                        device=dev)
                 planes.dev[name] = planes.dev[name].index_copy(0, idx, vals)
     planes.patch_idx = None
-    for name in _PLANE_ORDER:
+    for name in (*_PLANE_ORDER, "in_off"):
         if name not in planes.dev:
             planes.dev[name] = torch.as_tensor(getattr(planes, name),
                                                device=dev)
@@ -260,7 +261,7 @@ def solve_batch(planes: RoutePlanes, queries: list[RouteQuery],
         lanes = (ok_mat, src, dst, amount, cltv, rf)
         dist_src, via, ovf = (t.cpu().numpy() for t in HR.route_sweep(
             *plane_args, *(torch.as_tensor(a, device=dev) for a in lanes),
-            planes.n_pad, DEFAULT_MAX_HOPS))
+            planes.n_pad, DEFAULT_MAX_HOPS, in_off=planes.dev["in_off"]))
         for i, q in enumerate(chunk):
             if out[start + i] is not None:
                 continue       # resolved above

@@ -8,6 +8,16 @@ versions and launch counters.
   ``mcf_solve_plain``; replaces lightning_tpu/routing/mcf_device.py
   ``_make_mcf_single`` :419 (``_jit_mcf`` :514).
 
+Each kernel runs a query on a thread block cluster of ``R1_CLUSTER`` /
+``R2_CLUSTER`` blocks, the fastest sizes at phase 7's shapes on the H100
+(PERF.md section 6), the query's node labels split by node range across
+the blocks.  R1 keeps them in global memory.  R2 keeps them in the
+blocks' shared memory where they fit (32 bytes a node: up to 65,536
+nodes at 16 blocks), else in global memory.  No size or placement is
+retried: a refused launch raises.  The keyword ``_cluster`` launches
+another size; only the per-size sweep of ``chip_smoke.py``, the card
+tests and ``routing_ablation.py`` use it.
+
 Each plain version is the JAX program written out in PyTorch, the vmap
 a batch dimension and the scans loops; ``segment_min`` becomes
 ``scatter_reduce(amin)`` over a buffer that starts at the dtype's
@@ -44,6 +54,13 @@ AUG_STEPS = 64              # 4 * mcf.MAX_PARTS
 WALK_CAP = 64               # predecessor-walk budget per augmentation
 EPS = 1e-9                  # mcf._shortest_path's tolerance
 
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+R1_CLUSTER = 2
+R2_CLUSTER = 16
+# dynamic shared memory a block may take, less the kernels' static share
+SMEM_LIMIT = 232_448 - 1_024
+R2_NODE_BYTES = 8 + 8 + 4 * 4   # dist, key; arc, pred, 2 lists
+
 
 def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
@@ -55,11 +72,7 @@ def _on_card(t: torch.Tensor) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, n_ptr: int, n_int: int):
-    fn = getattr(_build.lib(name), f"{name}_launch")
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.c_launch(_build.lib(name), name, n_ptr, n_int)
 
 
 def _launch(name: str, tensors: list, ints: list, dtypes: list) -> None:
@@ -77,18 +90,36 @@ def _launch(name: str, tensors: list, ints: list, dtypes: list) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def split(n_nodes: int, cluster: int) -> tuple[int, int]:
+    """A cluster's split of n_nodes: (nodes a block, a power of two; its
+    log2).  Node v belongs to block v // per."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}")
+    per = 1
+    while per * cluster < n_nodes:
+        per <<= 1
+    return per, per.bit_length() - 1
+
+
+def r2_shared(per: int) -> bool:
+    """Whether R2 keeps a block's node entries, per nodes, in its
+    shared memory."""
+    return per * R2_NODE_BYTES <= SMEM_LIMIT
+
+
 # ---------------------------------------------------------------------------
 # R1: the route sweep
 
 
 def route_sweep_plain(edge_src, edge_dst, base, ppm, cd, hmin, hmax,
                       edge_ok, src, dst, amount, final_cltv, riskfactor,
-                      n_nodes: int, max_hops: int):
-    """Plain version of R1, ``_make_single`` over a batch.  Planes (E,):
-    edge_src, edge_dst int32, base, ppm, cd, hmin, hmax int64; per query
-    edge_ok (B, E) bool, src, dst (B,) int32, amount, final_cltv,
-    riskfactor (B,) int64.  Returns (dist at src (B,) int64, via (B,
-    n_nodes) int32, ovf (B,) bool)."""
+                      n_nodes: int, max_hops: int, in_off=None):
+    """Plain version of R1, ``_make_single`` over a batch: max_hops full
+    sweeps.  Planes (E,): edge_src, edge_dst int32, base, ppm, cd, hmin,
+    hmax int64; per query edge_ok (B, E) bool, src, dst (B,) int32,
+    amount, final_cltv, riskfactor (B,) int64.  Returns (dist at src (B,)
+    int64, via (B, n_nodes) int32, ovf (B,) bool).  ``in_off``, the
+    kernel's in-edge offsets, is accepted and not read."""
     B, E = edge_ok.shape
     dv = edge_ok.device
     rows = torch.arange(B, device=dv)
@@ -139,31 +170,49 @@ def route_sweep_plain(edge_src, edge_dst, base, ppm, cd, hmin, hmax,
 
 def route_sweep(edge_src, edge_dst, base, ppm, cd, hmin, hmax, edge_ok,
                 src, dst, amount, final_cltv, riskfactor, n_nodes: int,
-                max_hops: int):
-    """R1 wrapper; operands and results as ``route_sweep_plain``."""
+                max_hops: int, in_off=None, work: list | None = None,
+                _cluster: int | None = None):
+    """R1 wrapper; operands and results as ``route_sweep_plain``.  On the
+    card the edges must be sorted by edge_dst and ``in_off`` (n_nodes +
+    1,) int32 must hold the in-edges' offsets (``planes.in_csr``; an edge
+    outside every range must be off in edge_ok): the kernel prices a
+    sweep's frontier by them.  When `work` is a list, the kernel's (B,
+    2) int64 tensor of sweeps run and edges priced a query is appended to
+    it."""
     if not _on_card(edge_ok):
         return route_sweep_plain(edge_src, edge_dst, base, ppm, cd, hmin,
                                  hmax, edge_ok, src, dst, amount,
                                  final_cltv, riskfactor, n_nodes, max_hops)
     B, E = edge_ok.shape
+    if in_off is None or in_off.shape != (n_nodes + 1,):
+        raise ValueError("route_sweep: in_off must be (n_nodes + 1,)")
+    C = _cluster or R1_CLUSTER
+    per, shift = split(n_nodes, C)
     dv = edge_ok.device
     i32, i64, u8 = torch.int32, torch.int64, torch.uint8
     dist_src = torch.empty(B, dtype=i64, device=dv)
     via = torch.empty((B, n_nodes), dtype=i32, device=dv)
     ovf = torch.empty(B, dtype=u8, device=dv)
-    scratch = torch.empty((B, 6, n_nodes), dtype=i64, device=dv)
-    scratch_e = torch.empty((B, n_nodes), dtype=i32, device=dv)
-    ops = [edge_src, edge_dst, base, ppm, cd, hmin, hmax,
+    w = torch.empty((B, 2), dtype=i64, device=dv)
+    scratch = torch.empty((B, 6, C * per), dtype=i64, device=dv)
+    scratch_e = torch.empty((B, 3, C * per), dtype=i32, device=dv)
+    wl_e = torch.empty((B, E), dtype=i32, device=dv)
+    wl_c = torch.empty((B, E), dtype=i64, device=dv)
+    ops = [edge_src, edge_dst, in_off, base, ppm, cd, hmin, hmax,
            edge_ok.contiguous().view(u8), src, dst, amount, final_cltv,
-           riskfactor, dist_src, via, ovf, scratch, scratch_e]
-    kinds = [i32, i32] + [i64] * 5 + [u8, i32, i32] + [i64] * 4 \
-        + [i32, u8, i64, i32]
-    if any(t.shape != (E,) for t in ops[:7]) \
-            or any(t.shape != (B,) for t in ops[8:13]):
+           riskfactor, dist_src, via, ovf, w, scratch, scratch_e, wl_e,
+           wl_c]
+    kinds = [i32] * 3 + [i64] * 5 + [u8, i32, i32] + [i64] * 4 \
+        + [i32, u8, i64, i64, i32, i32, i64]
+    if any(t.shape != (E,) for t in ops[:2] + ops[3:8]) \
+            or any(t.shape != (B,) for t in ops[9:14]):
         raise ValueError("route_sweep: planes must be (E,), query lanes "
                          "(B,)")
-    _launch("route_sweep", ops, [B, E, n_nodes, max_hops], kinds)
+    _launch("route_sweep", ops, [B, E, n_nodes, max_hops, C, per, shift],
+            kinds)
     route_sweep.launches += 1
+    if work is not None:
+        work.append(w)
     return dist_src, via, ovf.bool()
 
 
@@ -271,13 +320,29 @@ def tail_csr(i_src: torch.Tensor, n_arcs: int, n_pad: int):
     return off.to(torch.int32), order.to(torch.int32)
 
 
-def mcf_solve(i_src, i_dst, tail_off, tail_arc, fwd_cost, fwd_res, src,
-              dst, amount, aug_cap, n_pad: int, work: list | None = None):
+def tail_order(i_dst: torch.Tensor, tail_arc: torch.Tensor):
+    """The heads of the arcs by tail, (At,) int32, and each arc's place
+    among them, (2 Af,) int32, -1 for an arc outside them: the kernel's
+    tail-order operands, a function of the topology alone."""
+    arc = tail_arc.long()
+    pos = torch.full_like(i_dst, -1)
+    pos[arc] = torch.arange(arc.numel(), dtype=torch.int32,
+                            device=i_dst.device)
+    return i_dst[arc].contiguous(), pos
+
+
+def mcf_solve(i_src, i_dst, tail_off, tail_arc, tail_dst, tail_pos,
+              fwd_cost, fwd_res, src, dst, amount, aug_cap, n_pad: int,
+              work: list | None = None, _cluster: int | None = None):
     """R2 wrapper; operands and results as ``mcf_solve_plain``, plus the
-    arcs by tail from ``tail_csr`` (the kernel's frontier reads them;
-    the plain version sweeps every arc).  When `work` is a list, the
-    kernel's (B, 3) int64 tensor of augmentations, rounds and frontier
-    arcs visited a query is appended to it."""
+    arcs by tail, ``tail_csr``'s pair, and their heads and each arc's
+    place among them, ``tail_order``'s pair (``McfPlanes.device_arcs``
+    gives all six topology operands).  The kernel reads all but i_dst:
+    it copies each query's costs and residuals into tail order and
+    relaxes a round's frontier there (the plain version sweeps every
+    arc).  When `work` is a list, the kernel's (B, 3) int64 tensor of
+    augmentations, rounds and frontier arcs visited a query is appended
+    to it."""
     if not _on_card(fwd_cost):
         return mcf_solve_plain(i_src, i_dst, fwd_cost, fwd_res, src, dst,
                                amount, aug_cap, n_pad)
@@ -287,29 +352,34 @@ def mcf_solve(i_src, i_dst, tail_off, tail_arc, fwd_cost, fwd_res, src,
         raise ValueError("mcf_solve: arcs must be (2 Af,), lanes (B, Af)")
     if any(t.shape != (B,) for t in (src, dst, amount, aug_cap)):
         raise ValueError("mcf_solve: query lanes must be (B,)")
-    if tail_off.shape != (n_pad + 1,) or tail_arc.shape[0] > 2 * Af:
+    At = tail_arc.shape[0]
+    if tail_off.shape != (n_pad + 1,) or At > 2 * Af \
+            or tail_dst.shape != (At,) or tail_pos.shape != (2 * Af,):
         raise ValueError("mcf_solve: tail_off must be (n_pad + 1,), "
-                         "tail_arc at most (2 Af,)")
+                         "tail_arc and tail_dst (At <= 2 Af,), tail_pos "
+                         "(2 Af,)")
+    C = _cluster or R2_CLUSTER
+    per, shift = split(n_pad, C)
     dv = fwd_cost.device
     i32, i64, u8, f64 = torch.int32, torch.int64, torch.uint8, torch.float64
-    # the kernel updates the forward residuals in place
-    res = fwd_res.clone()
-    flow = torch.zeros((B, Af), dtype=i64, device=dv)
+    flow = torch.empty((B, Af), dtype=i64, device=dv)
+    t_cost = torch.empty((B, At), dtype=f64, device=dv)
+    t_res = torch.empty((B, At), dtype=i64, device=dv)
     remaining = torch.empty(B, dtype=i64, device=dv)
     nopath = torch.empty(B, dtype=u8, device=dv)
     walkfail = torch.empty(B, dtype=u8, device=dv)
     w = torch.empty((B, 3), dtype=i64, device=dv)
-    dist = torch.empty((B, n_pad), dtype=f64, device=dv)
-    pred = torch.empty((B, n_pad), dtype=i32, device=dv)
-    key = torch.empty((B, n_pad), dtype=i64, device=dv)
-    arc = torch.empty((B, n_pad), dtype=i32, device=dv)
-    lists = torch.empty((B, 2, n_pad), dtype=i32, device=dv)
-    ops = [i_src, i_dst, tail_off, tail_arc, fwd_cost, res, flow, src, dst,
-           amount, aug_cap, remaining, nopath, walkfail, w, dist, pred, key,
-           arc, lists]
-    kinds = [i32] * 4 + [f64, i64, i64, i32, i32, i64, i32, i64, u8, u8,
-                         i64, f64, i32, i64, i32, i32]
-    _launch("mcf_ssp", ops, [B, Af, n_pad], kinds)
+    # the node entries' global copy, read only when they are not shared
+    dist = torch.empty((B, C * per), dtype=f64, device=dv)
+    key = torch.empty((B, C * per), dtype=i64, device=dv)
+    i32s = torch.empty((B, 4, C * per), dtype=i32, device=dv)
+    ops = [i_src, tail_off, tail_arc, tail_dst, tail_pos, fwd_cost,
+           fwd_res, flow, t_cost, t_res, src, dst, amount, aug_cap,
+           remaining, nopath, walkfail, w, dist, key, i32s]
+    kinds = [i32] * 5 + [f64, i64, i64, f64, i64, i32, i32, i64, i32, i64,
+                         u8, u8, i64, f64, i64, i32]
+    _launch("mcf_ssp", ops,
+            [B, Af, At, n_pad, C, per, shift, int(r2_shared(per))], kinds)
     mcf_solve.launches += 1
     if work is not None:
         work.append(w)

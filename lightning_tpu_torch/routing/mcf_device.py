@@ -222,9 +222,10 @@ class McfPlanes:
         )
 
     def device_arcs(self) -> tuple:
-        """(i_src, i_dst, tail_off, tail_arc) on ``device``, R2's
-        topology operands, uploaded and grouped by tail at the first
-        call of a topology revision.  The padding arcs past
+        """(i_src, i_dst, tail_off, tail_arc, tail_dst, tail_pos) on
+        ``device``, R2's topology operands, uploaded, grouped by tail
+        (``HR.tail_csr``) and put in tail order (``HR.tail_order``) at
+        the first call of a topology revision.  The padding arcs past
         ``2 * a_fwd_real`` carry no residual and are left out of the
         grouping."""
         if "i_src" not in self.dev:
@@ -233,8 +234,11 @@ class McfPlanes:
                                               device=self.device)
             self.dev["tail_off"], self.dev["tail_arc"] = HR.tail_csr(
                 self.dev["i_src"], 2 * self.a_fwd_real, self.n_pad)
+            self.dev["tail_dst"], self.dev["tail_pos"] = HR.tail_order(
+                self.dev["i_dst"], self.dev["tail_arc"])
         return tuple(self.dev[k] for k in ("i_src", "i_dst", "tail_off",
-                                           "tail_arc"))
+                                           "tail_arc", "tail_dst",
+                                           "tail_pos"))
 
     @classmethod
     def current(cls, g, cached: "McfPlanes | None",

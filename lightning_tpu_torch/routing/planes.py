@@ -36,6 +36,13 @@ _MIN_NODE_PAD = 64
 _MIN_EDGE_PAD = 256
 
 
+def in_csr(edge_dst: np.ndarray, n_nodes: int) -> np.ndarray:
+    """(n_nodes + 1,) int32 offsets of a destination-sorted edge list:
+    node v's in-edges are in_off[v] .. in_off[v + 1] - 1."""
+    return np.searchsorted(edge_dst, np.arange(n_nodes + 1),
+                           "left").astype(np.int32)
+
+
 def _pow2_pad(n: int, floor: int) -> int:
     p = floor
     while p < n:
@@ -72,6 +79,9 @@ class RoutePlanes:
     edge_hmax: np.ndarray   # (E,) int64 msat (0 = no cap)
     edge_enabled: np.ndarray  # (E,) bool
     edge_cap_sat: np.ndarray  # (E,) float32 (mcf consumers; not in cost)
+    # (n_pad + 1,) int32: the in-edges of node v are in_off[v] ..
+    # in_off[v + 1] - 1 (the real edges; R1's frontier reads them)
+    in_off: np.ndarray = None
     device: torch.device = torch.device("cpu")
     dev: dict = field(default_factory=dict)
     # channel -> edge lookup (exclusion masks): edge indices sorted by chan
@@ -125,6 +135,7 @@ class RoutePlanes:
                 np.minimum(g.htlc_max_msat[d, c], _I64_CLAMP), np.int64),
             edge_enabled=_padded(g.enabled[d, c], bool, False),
             edge_cap_sat=_padded(g.capacity_sat[c], np.float32),
+            in_off=in_csr(edge_dst, n_pad),
             device=dev,
             params_log_pos=g.param_log_pos,
         )

@@ -1,9 +1,10 @@
 """The routing kernels' per-element arithmetic (routing/csrc/routing.cuh,
 ``__host__ __device__``) built with the host C++ compiler and held
 against the plain PyTorch versions on the CPU: R1's per-edge pricing and
-overflow threshold against ``route_sweep_plain``, R2's order-preserving
-key of a double (with -0.0) against torch's float64 minimum.  No card
-or nvcc needed."""
+overflow threshold against ``route_sweep_plain``, its division-free
+overflow guard against the threshold's division form, R2's
+order-preserving key of a double (with -0.0) against torch's float64
+minimum.  No card or nvcc needed."""
 from __future__ import annotations
 
 import ctypes
@@ -24,12 +25,14 @@ extern "C" {
 int64_t c_threshold(int64_t ppm, int64_t cdr) {
     return rt_threshold(ppm, cdr);
 }
+int c_unsafe(int64_t a, int64_t ppm, int64_t cdr) {
+    return rt_unsafe(a, ppm, cdr);
+}
 int c_price(int64_t d_v, int64_t a_v, int64_t base, int64_t ppm,
             int64_t hmin, int64_t hmax, int64_t cd, int64_t rf,
             int64_t *cand, int64_t *fee, int *ovf) {
-    int64_t cdr = cd * rf;
-    return rt_price(d_v, a_v, 1, base, ppm, hmin, hmax, cdr,
-                    rt_threshold(ppm, cdr), cand, fee, ovf);
+    return rt_price(d_v, a_v, 1, base, ppm, hmin, hmax, cd * rf, cand, fee,
+                    ovf);
 }
 uint64_t c_key(double d) { return mcf_key(d); }
 double c_unkey(uint64_t k) { return mcf_unkey(k); }
@@ -51,6 +54,8 @@ def lib(tmp_path_factory):
     so = ctypes.CDLL(str(out))
     so.c_threshold.argtypes = [I64, I64]
     so.c_threshold.restype = I64
+    so.c_unsafe.argtypes = [I64] * 3
+    so.c_unsafe.restype = ctypes.c_int
     so.c_price.argtypes = [I64] * 8 + [ctypes.c_void_p] * 3
     so.c_price.restype = ctypes.c_int
     so.c_key.argtypes = [ctypes.c_double]
@@ -71,6 +76,28 @@ def test_threshold_matches_the_plain_ceiling(lib):
         HR.OVF_LIMIT // torch.as_tensor(cdr).clamp(min=1))
     got = [lib.c_threshold(int(p), int(c)) for p, c in zip(ppm, cdr)]
     assert got == want.tolist()
+
+
+def test_overflow_guard_matches_the_division_form(lib):
+    """rt_unsafe (128-bit products, no division) decides a >
+    rt_threshold(ppm, cdr) exactly: on the edges of both forms and on
+    10,000 seeded random triples."""
+    ppms = [0, 1, 2, 10**6, (1 << 61) - 1, 1 << 61, 1 << 62]
+    cdrs = [0, 1, HR.RISK_DENOM, 1 << 40]
+    triples = []
+    for p in ppms:
+        for c in cdrs:
+            thr = lib.c_threshold(p, c)
+            triples += [(a, p, c) for a in (0, thr - 1, thr, thr + 1,
+                                            1 << 62)]
+    rng = np.random.default_rng(17)
+    bits = rng.integers(0, 63, (10_000, 3))
+    vals = rng.integers(0, 1 << 62, (10_000, 3)) >> bits
+    triples += [tuple(int(x) for x in t) for t in vals]
+    got = [lib.c_unsafe(a, p, c) for a, p, c in triples]
+    want = [int(a > lib.c_threshold(p, c)) for a, p, c in triples]
+    assert got == want
+    assert 0 < sum(got) < len(got)
 
 
 def test_edge_price_matches_route_sweep_plain(lib):

@@ -582,8 +582,10 @@ def test_out_of_memory_in_the_first_dispatch_bisects_and_completes(
 
 def test_route_sweep_kernel_matches_plain(small_store):
     """R1 against its plain version on the card at a ragged batch (67
-    queries): dist at the source, via and the overflow flag equal, with
-    excluded edges, amounts up to 2^48 and riskfactors 0 to 10^6; then
+    queries), at every cluster size: dist at the source, via and the
+    overflow flag equal,
+    with excluded edges, amounts up to 2^48 and riskfactors 0 to 10^6,
+    and the sweeps stop before max_hops on this small graph; then
     solve_batch on the card answers as on the CPU."""
     from lightning_tpu_torch.routing import device as RD
     from lightning_tpu_torch.routing import hopper_route as HR
@@ -594,6 +596,7 @@ def test_route_sweep_kernel_matches_plain(small_store):
     g.htlc_max_msat[:, :20] = 0
     planes = RoutePlanes.build(g, "cuda")
     args = RD._device_plane_args(planes)
+    in_off = planes.dev["in_off"]
     gen = np.random.default_rng(5)
     Bq = 67
     ok = np.stack([planes.edge_ok_mask()] * Bq)
@@ -605,13 +608,18 @@ def test_route_sweep_kernel_matches_plain(small_store):
              gen.integers(9, 40, Bq).astype(np.int64),
              gen.choice([0, 1, 10, 10**6], Bq).astype(np.int64)]
     lanes = [torch.as_tensor(a, device="cuda") for a in lanes]
-    before = HR.route_sweep.launches
-    got = HR.route_sweep(*args, *lanes, planes.n_pad, 20)
-    torch.cuda.synchronize()
-    assert HR.route_sweep.launches == before + 1
     want = HR.route_sweep_plain(*args, *lanes, planes.n_pad, 20)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for cluster in HR.CLUSTER_SIZES:
+        before = HR.route_sweep.launches
+        work = []
+        got = HR.route_sweep(*args, *lanes, planes.n_pad, 20, in_off=in_off,
+                             work=work, _cluster=cluster)
+        torch.cuda.synchronize()
+        assert HR.route_sweep.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), cluster
+        sweeps = work[0][:, 0]
+        assert (sweeps >= 1).all() and (sweeps < 20).all(), sweeps
     assert got[2].any() and (got[0] < HR.INF_COST).any()
     qs = []
     for _ in range(70):
@@ -623,11 +631,53 @@ def test_route_sweep_kernel_matches_plain(small_store):
     assert repr(card) == repr(cpu)
 
 
+def test_route_sweep_stops_at_its_fixed_point_and_keeps_the_hop_cap(cuda):
+    """Two chains in one graph: 21 edges i + 1 -> i (nodes 0 .. 21) and
+    3 edges 33 -> 32 -> 31 -> 30.  A path of exactly 20 hops is found,
+    one of 21 is not (20 sweeps run); the 3-hop chain's queries stop
+    after 4 sweeps (the last changes nothing) having priced 3 edges; at
+    every cluster size, equal to the plain version."""
+    from lightning_tpu_torch.routing import hopper_route as HR
+    from lightning_tpu_torch.routing.planes import in_csr
+
+    dev = cuda
+    E, n = 256, 64
+    u = np.r_[np.arange(1, 22), [31, 32, 33]].astype(np.int32)
+    v = np.r_[np.arange(0, 21), [30, 31, 32]].astype(np.int32)
+    m = len(u)
+    planes = [np.zeros(E, np.int32), np.zeros(E, np.int32)] + [
+        np.zeros(E, np.int64) for _ in range(5)]
+    planes[0][:m], planes[1][:m] = u, v
+    planes[2][:m] = 1                              # base fee
+    planes[4][:m] = 6                              # cltv delta
+    in_off = torch.as_tensor(in_csr(v, n), device=dev)
+    planes = [torch.as_tensor(p, device=dev) for p in planes]
+    ok = np.zeros((4, E), bool)
+    ok[:, :m] = True
+    lanes = [ok, np.array([20, 21, 33, 5], np.int32),
+             np.array([0, 0, 30, 30], np.int32),
+             np.full(4, 10_000, np.int64), np.full(4, 18, np.int64),
+             np.full(4, 10, np.int64)]
+    lanes = [torch.as_tensor(a, device=dev) for a in lanes]
+    want = HR.route_sweep_plain(*planes, *lanes, n, 20)
+    assert want[0][0] < HR.INF_COST and want[0][1] >= HR.INF_COST
+    for cluster in HR.CLUSTER_SIZES:
+        work = []
+        got = HR.route_sweep(*planes, *lanes, n, 20, in_off=in_off,
+                             work=work, _cluster=cluster)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), cluster
+        assert work[0].tolist() == [[20, 20], [20, 20], [4, 3], [4, 3]], \
+            cluster
+
+
 def test_mcf_solve_kernel_matches_plain(small_store):
-    """R2 against its plain version on the card: the small store's lanes
-    (single- and multi-part amounts), then random residual graphs with
-    equal and -0.0 costs, negative cycles (walk failures), dead ends and
-    augmentation caps; flows, remaining and both flags equal; then
+    """R2 against its plain version on the card, at every cluster size:
+    the small store's lanes (single- and multi-part amounts), then random
+    residual graphs with equal and -0.0 costs, negative cycles (walk
+    failures), dead ends and augmentation caps, padded to 64 nodes (the
+    node entries in shared memory at every size) and to 2^17 (in global
+    memory at every size); flows, remaining and both flags equal; then
     solve_mcf_batch on the card answers as on the CPU."""
     from lightning_tpu_torch.routing import hopper_route as HR
     from lightning_tpu_torch.routing import mcf_device as MD
@@ -664,18 +714,23 @@ def test_mcf_solve_kernel_matches_plain(small_store):
                                 device="cuda")
         a_dst = torch.as_tensor(np.stack([fd, fs], 1).reshape(-1),
                                 device="cuda")
-        cases.append(((a_src, a_dst, *HR.tail_csr(a_src, 2 * af, 64)),
-                      ops, 64))
+        for n_pad in (64, 1 << 17):
+            tail = HR.tail_csr(a_src, 2 * af, n_pad)
+            cases.append(((a_src, a_dst, *tail,
+                           *HR.tail_order(a_dst, tail[1])), ops, n_pad))
+    assert HR.r2_shared(HR.split(64, 1)[0])
+    assert not HR.r2_shared(HR.split(1 << 17, 16)[0])
     seen = np.zeros(3, int)
     for arcs, ops, n_pad in cases:
         t = [torch.as_tensor(o, device="cuda") for o in ops]
-        before = HR.mcf_solve.launches
-        got = HR.mcf_solve(*arcs, *t, n_pad)
-        torch.cuda.synchronize()
-        assert HR.mcf_solve.launches == before + 1
         want = HR.mcf_solve_plain(*arcs[:2], *t, n_pad)
-        for x, y in zip(got, want):
-            assert torch.equal(x, y)
+        for cluster in HR.CLUSTER_SIZES:
+            before = HR.mcf_solve.launches
+            got = HR.mcf_solve(*arcs, *t, n_pad, _cluster=cluster)
+            torch.cuda.synchronize()
+            assert HR.mcf_solve.launches == before + 1
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (cluster, n_pad)
         seen += [int((got[1] > 0).sum()), int(got[2].sum()),
                  int(got[3].sum())]
     assert (seen > 0).all()

@@ -169,8 +169,8 @@ def test_wrappers_refuse_other_devices():
                                               device="meta"),
                        *(q,) * 5, 64, 20)
     with pytest.raises(ValueError, match="unsupported device"):
-        HR.mcf_solve(e, e, e, e, torch.zeros((2, 2), dtype=torch.float64,
-                                             device="meta"),
+        HR.mcf_solve(*(e,) * 6, torch.zeros((2, 2), dtype=torch.float64,
+                                            device="meta"),
                      torch.zeros((2, 2), dtype=torch.int64, device="meta"),
                      *(q,) * 4, 64)
 

@@ -393,3 +393,46 @@ def test_mcf_service_answers_for_the_revision_it_solved(tmp_path,
             moved += _host(TMCF, tg, q) != want
     assert waves[0][1][-1]["fee_msat"] == second
     assert moved >= Q
+
+
+def test_tail_order_round_trip(tmp_path):
+    """R2's tail order, as ``McfPlanes`` uploads it and the kernel reads
+    it: the arcs by tail are the real arcs grouped by tail, their heads
+    are ``i_dst`` in that order and ``tail_pos`` inverts the order (-1 for
+    the padding).  A query's lanes copied into tail order (signed costs,
+    -0.0 included, and residuals; reverse arcs start empty) and back by
+    ``tail_pos`` give the lanes again, and zeros on the padding."""
+    rng = np.random.default_rng(31)
+    planes = TM.McfPlanes.build(convert.gossmap(_net(tmp_path, 30, 20, 5)),
+                                device=CPU)
+    i_src, i_dst, off, arc, t_dst, t_pos = planes.device_arcs()
+    A, Af = 2 * planes.a_fwd_real, planes.a_fwd_pad
+    a = arc.long()
+    assert torch.equal(torch.sort(a).values, torch.arange(A))
+    assert torch.equal(t_pos[a], torch.arange(A, dtype=torch.int32))
+    assert (t_pos[A:] == -1).all() and len(t_pos) == 2 * Af
+    assert torch.equal(t_dst, i_dst[a])
+    for u in range(planes.n_pad):
+        seg = a[int(off[u]):int(off[u + 1])]
+        assert (i_src[seg] == u).all() and torch.equal(seg, seg.sort()[0])
+    cost = torch.as_tensor(rng.choice([0.0, -0.0, 1.5, 2.0, 1e-10], (4, Af)))
+    res = torch.as_tensor(rng.integers(0, 1 << 40, (4, Af)))
+    rev = (a & 1).bool()
+    t_cost = torch.where(rev, -cost[:, a >> 1], cost[:, a >> 1])
+    t_res = torch.where(rev, 0, res[:, a >> 1])
+    pos = t_pos.long()
+
+    def back(t):
+        out = torch.where(pos >= 0, t[:, pos.clamp(min=0)],
+                          torch.zeros((), dtype=t.dtype))
+        return out[:, 0::2], out[:, 1::2]
+
+    real = A // 2
+    fc, rc = back(t_cost)
+    assert torch.equal(fc[:, :real].view(torch.int64),
+                       cost[:, :real].view(torch.int64))
+    assert torch.equal(rc[:, :real].view(torch.int64),
+                       (-cost[:, :real]).view(torch.int64))
+    fr, rr = back(t_res)
+    assert torch.equal(fr[:, :real], res[:, :real])
+    assert (rr == 0).all() and (fr[:, real:] == 0).all()

@@ -30,6 +30,7 @@ from lightning_tpu_torch.resilience import overload
 from lightning_tpu_torch.routing import device as TD
 from lightning_tpu_torch.routing import dijkstra as TDJ
 from lightning_tpu_torch.routing import hopper_route as HR
+from lightning_tpu_torch.routing import planes as planes_mod
 from lightning_tpu_torch.routing.planes import RoutePlanes
 
 torch.set_num_threads(1)
@@ -360,3 +361,191 @@ def test_patched_planes_equal_fresh_build(tmp_path):
         TD.solve_batch(fresh, qs, batch=Q))
     for k in TD._PLANE_ORDER:
         assert torch.equal(burst.dev[k], fresh.dev[k]), k
+
+
+# ---------------------------------------------------------------------------
+# R1's frontier algorithm, emulated step by step on the CPU
+
+L_OVF = 1 << 61
+MAX_HOPS = 20
+
+
+def _unsafe(a, ppm, cdr):
+    """The kernel's division-free guard: a > 2^61 // max(p, 1) for either
+    product, as a * max(p, 1) > 2^61."""
+    return a > 0 and (a * max(ppm, 1) > L_OVF or a * max(cdr, 1) > L_OVF)
+
+
+def _frontier_sweep(p, in_off, ok, src, dst, amount, cltv, rf, n, rng):
+    """One query through route_sweep.cu's sweeps, in a random order of
+    the frontier's edges (the kernel's atomics fold in any order): pass
+    A over the frontier's in-edges only (a tail is listed by the first
+    edge that lowers it, an edge goes on the work list with its
+    candidate when at or below the minimum it met), pass B reading the
+    work list, pass C staging the amount and delay read from the labels
+    before the sweep, the owner moving the stage into the labels at the
+    next pass A; the stop at the first sweep that lists no node.
+    Returns (dist at src, via, ovf, sweeps run, edges priced)."""
+    es, ed, base, ppm, cd, hmin, hmax = (p[k].tolist() for k in (
+        "edge_src", "edge_dst", "edge_base", "edge_ppm", "edge_cltv",
+        "edge_hmin", "edge_hmax"))
+    dist = [TD.INF_COST] * n
+    amt, dly, via = [0] * n, [0] * n, [-1] * n
+    dist[dst] = 0
+    frontier = [(dst, amount, cltv)]          # (node, staged amt, delay)
+    ovf, sweeps, priced = False, 0, 0
+    for _ in range(MAX_HOPS):
+        if not frontier:
+            break
+        sweeps += 1
+        for v, a, d in frontier:
+            amt[v], dly[v] = a, d
+        pairs = [(v, a, e) for v, a, _ in frontier
+                 for e in range(in_off[v], in_off[v + 1])]
+        priced += len(pairs)
+        best, listed, work = {}, [], []
+        for i in rng.permutation(len(pairs)):
+            v, a_v, e = pairs[i]
+            d_v = dist[v]
+            if not (ok[e] and d_v < TD.INF_COST and a_v >= hmin[e]
+                    and (hmax[e] == 0 or a_v <= hmax[e])):
+                continue
+            cdr = cd[e] * rf
+            if _unsafe(a_v, ppm[e], cdr):
+                ovf = True
+                continue
+            cand = d_v + base[e] + a_v * ppm[e] // 10**6 + 1 \
+                + a_v * cdr // HR.RISK_DENOM
+            u = es[e]
+            if cand < dist[u]:
+                old = best.get(u, HR.I64_MAX)
+                best[u] = min(old, cand)
+                if old == HR.I64_MAX:
+                    listed.append(u)
+                if cand <= old:
+                    work.append((e, cand))
+        best_e = {}
+        for i in rng.permutation(len(work)):
+            e, cand = work[i]
+            if cand == best[es[e]]:
+                best_e[es[e]] = min(best_e.get(es[e], HR.I32_MAX), e)
+        frontier = []
+        for u in listed:
+            e = best_e[u]
+            a_w = amt[ed[e]]
+            dist[u] = best[u]
+            frontier.append((u, a_w + base[e] + a_w * ppm[e] // 10**6,
+                             dly[ed[e]] + cd[e]))
+            via[u] = e
+    return dist[src], via, ovf, sweeps, priced
+
+
+def _random_graph(rng, n_pad=64, e_pad=256):
+    """Planes of a random graph, edges sorted by destination: parallel
+    edges, a few self-loops, fee and window values drawn from small sets
+    (equal-cost ties), disabled edges, and node 1 with no in-edge."""
+    n = int(rng.integers(3, n_pad + 1))
+    m = int(rng.integers(1, e_pad + 1))
+    u = rng.integers(0, n, m)
+    v = rng.integers(0, n, m)
+    v[v == 1] = 0
+    dup = rng.random(m) < 0.15
+    u[1:][dup[1:]], v[1:][dup[1:]] = u[:-1][dup[1:]], v[:-1][dup[1:]]
+    order = np.argsort(v, kind="stable")
+    pick = rng.choice
+
+    def lane(vals, dtype=np.int64):
+        out = np.zeros(e_pad, dtype)
+        out[:m] = pick(vals, m)
+        return out
+
+    p = {"edge_src": np.zeros(e_pad, np.int32),
+         "edge_dst": np.zeros(e_pad, np.int32),
+         "edge_base": lane([0, 0, 1, 1000]),
+         "edge_ppm": lane([0, 1, 10, 1000, 9_999, 10**6]),
+         "edge_cltv": lane([0, 6, 40, 144]),
+         "edge_hmin": lane([0, 0, 0, 50_000, 1 << 40]),
+         "edge_hmax": lane([0, 0, 0, 80_000, 10**9, 1 << 45])}
+    p["edge_src"][:m], p["edge_dst"][:m] = u[order], v[order]
+    enabled = np.zeros(e_pad, bool)
+    enabled[:m] = rng.random(m) < 0.9
+    return p, n, m, enabled
+
+
+def _chain_graph(hops, n_pad=64, e_pad=256):
+    """Nodes 0 .. hops, edge i + 1 -> i for each i: a path of `hops`
+    edges from node `hops` to node 0."""
+    p = {k: np.zeros(e_pad, np.int64) for k in (
+        "edge_base", "edge_ppm", "edge_cltv", "edge_hmin", "edge_hmax")}
+    p["edge_src"] = np.zeros(e_pad, np.int32)
+    p["edge_dst"] = np.zeros(e_pad, np.int32)
+    p["edge_src"][:hops] = np.arange(1, hops + 1)
+    p["edge_dst"][:hops] = np.arange(hops)
+    p["edge_base"][:hops] = 1
+    p["edge_cltv"][:hops] = 6
+    enabled = np.zeros(e_pad, bool)
+    enabled[:hops] = True
+    return p, hops + 1, hops, enabled
+
+
+def test_route_frontier_emulation_matches_jit_route(ref):
+    """The kernel's frontier sweep, emulated query by query on about 200
+    seeded random graphs, against the reference program and R1's plain
+    version: dist at the source, via and the overflow flag equal
+    exactly.  Ties on equal cost, parallel edges, self-loops, disabled
+    and excluded edges, HTLC windows, amounts that force the overflow
+    flag, an isolated destination, and a chain of exactly 20 hops
+    (found) and one of 21 (not found, though 21 > 20 sweeps would)."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(2024)
+    run = ref._jit_route(64, MAX_HOPS)
+    seen = {"ovf": 0, "unreached": 0, "reached": 0, "short": 0}
+    cases = [_random_graph(rng) for _ in range(198)]
+    cases += [_chain_graph(MAX_HOPS + 1)] * 2
+    for i, (p, n, m, enabled) in enumerate(cases):
+        in_off = planes_mod.in_csr(p["edge_dst"][:m], 64)
+        ok = np.stack([enabled & (rng.random(256) < 0.9) for _ in range(Q)])
+        src = rng.integers(0, n, Q).astype(np.int32)
+        dst = rng.integers(0, n, Q).astype(np.int32)
+        dst[0] = 1                                  # no in-edges
+        amount = rng.choice([0, 1_000, 60_000, 10**7, 10**9, 1 << 40,
+                             1 << 47, 1 << 48], Q).astype(np.int64)
+        cltv = rng.integers(9, 40, Q).astype(np.int64)
+        rf = rng.choice([0, 1, 10, 1_000_000], Q).astype(np.int64)
+        if i >= len(cases) - 2:                     # the chains
+            ok[:] = enabled
+            src[:] = [MAX_HOPS, MAX_HOPS + 1] * (Q // 2)
+            dst[:] = 0
+            amount[:] = 10_000
+        lanes = (ok, src, dst, amount, cltv, rf)
+        with jax.enable_x64(True):
+            want = [np.asarray(w) for w in run(
+                *(jnp.asarray(p[k]) for k in ref._PLANE_ORDER),
+                *(jnp.asarray(a) for a in lanes))]
+        plain = [t.numpy() for t in HR.route_sweep_plain(
+            *(torch.as_tensor(p[k]) for k in TD._PLANE_ORDER),
+            *(torch.as_tensor(a) for a in lanes), 64, MAX_HOPS,
+            in_off=torch.as_tensor(in_off))]
+        for j in range(Q):
+            d, via, ovf, sweeps, priced = _frontier_sweep(
+                p, in_off.tolist(), ok[j].tolist(), int(src[j]),
+                int(dst[j]), int(amount[j]), int(cltv[j]), int(rf[j]), 64,
+                rng)
+            for got in ((d, via, ovf), (plain[0][j], plain[1][j],
+                                        plain[2][j])):
+                assert got[0] == want[0][j], (i, j)
+                assert np.array_equal(got[1], want[1][j]), (i, j)
+                assert bool(got[2]) == bool(want[2][j]), (i, j)
+            assert 1 <= sweeps <= MAX_HOPS and priced <= MAX_HOPS * m
+            seen["ovf"] += ovf
+            seen["unreached"] += d >= TD.INF_COST
+            seen["reached"] += d < TD.INF_COST and src[j] != dst[j]
+            seen["short"] += sweeps < MAX_HOPS
+            if j == 0 and i < len(cases) - 2:
+                assert sweeps == 1 and priced == 0   # isolated dst
+        if i >= len(cases) - 2:
+            assert (want[0][0::2] < TD.INF_COST).all()
+            assert (want[0][1::2] >= TD.INF_COST).all()
+    assert all(v > 50 for v in seen.values()), seen
