@@ -49,7 +49,9 @@ Phases, each fatal on failure:
    broadcast reads: the gap is what their gathers cost); K1's bound with
    its batch inversion beside the bound of a Fermat chain per signature;
    S1 and S2 (C = 4), their bounds counted from what the data needs (the
-   nonzero digits, the candidates up to the first low R);
+   nonzero digits, the candidates up to the first low R) with one Fermat
+   chain a block, beside the bound with a chain per row; S2 also at C = 1
+   and at a commitment's 483 rows;
 5. the sign path at full width, with the launch counters set to 0 just
    before and read just after: one remote commitment with BOLT #2's 483
    HTLCs (anchors on) built by channel/commitment.py, signed by
@@ -2135,7 +2137,8 @@ def main(argv=None) -> int:
     # S1 and S2 (C = 4) at the bucket size; their work depends on the
     # data: the nonzero digits of each scalar, and for S2 the candidates
     # each row tries (up to its first low R, read from S2 at C = 1 on
-    # each candidate alone)
+    # each candidate alone).  Their bounds count a batch inversion a
+    # block, as the kernels invert; beside them the bound of a chain a row
     comb = H._comb_words(str(dev))
     k8 = s1_inputs(gen, Bk, dev, F, ref)
     z8, d8, ks8 = s2_inputs(gen, Bk, 4, dev, F, E, ref, torch)
@@ -2147,35 +2150,71 @@ def main(argv=None) -> int:
     adds, points = H.sign_work(ks8, low)
     s1_adds = H.nonzero_digits(k8).double().mean().item()
     table_bytes = comb.numel() * 4
+
+    def s2_bytes(B, C):
+        return B * (2 * 32 + C * 32 + 2 * 32 + 2) + table_bytes
+
     sign_runs = {
         "fixed_base": (lambda: H._launch("fixed_base", k8, comb, *xy, B=Bk),
                        lambda: H.fixed_base_affine_plain(k8),
-                       Bk * 3 * 32 + table_bytes,
-                       H.comb_op_counts(opc, s1_adds, 1, 2, 0)),
+                       Bk * 3 * 32 + table_bytes, (s1_adds, 1, 2, 0)),
         "ecdsa_sign": (lambda: H._launch("ecdsa_sign", z8, d8, ks8, comb,
                                          *xy, *flags, B=Bk,
                                          entry="ecdsa_sign4"),
                        lambda: H.ecdsa_sign_plain(z8, d8, ks8),
-                       Bk * (2 * 32 + 4 * 32 + 2 * 32 + 2) + table_bytes,
-                       H.comb_op_counts(opc, adds, points, 1, 1)),
+                       s2_bytes(Bk, 4), (adds, points, 1, 1)),
     }
     log(f"S1 data: {s1_adds:.3f} nonzero digits a scalar; S2 data: "
         f"{points:.4f} candidates tried a row, {adds:.3f} comb additions")
     sign_records = {}
-    for k, (kern, plain, nbytes, ops) in sign_runs.items():
+    for k, (kern, plain, nbytes, work) in sign_runs.items():
         ms = time_cuda(torch, kern, reps=20)
         plain_ms = time_cuda(torch, plain, reps=1, warm=1)
+        ops = H.comb_op_counts(opc, *work)
         b_ms, b_by = bound_ms(ops, H, Bk, nbytes, clock)
+        row_ms, _ = bound_ms(H.comb_op_counts(opc, *work, batched=False), H,
+                             Bk, nbytes, clock)
         log(f"time {k}: {ms:.4f} ms/call at B={Bk}, plain {plain_ms:.1f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; field ops a row {ops}; SM clock "
             f"{clock / 1e6:.0f} MHz)")
+        log(f"bound {k}: {b_ms:.4f} ms with one Fermat chain a block of "
+            f"{H.SIGN_THREADS}, {row_ms:.4f} ms with a chain per row")
         sign_records[k] = {
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": None, "path": "sign",
             "max_abs_err": result[k]["err"], "mismatches":
             result[k]["mismatch"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_chain_per_row_ms": row_ms}
         kernels.append(sign_records[k])
+
+    # S2 at C = 1 (the synthetic store's bulk signer) on candidate 0, and
+    # at C = 4 on the first 483 rows (one commitment's HTLCs, hsmd's call)
+    n_c = MAX_HTLCS
+    k1 = ks8[:1].contiguous()
+    zc, dc, kc = (t[..., :n_c].contiguous() for t in (z8, d8, ks8))
+    xyc = [t[:, :n_c].contiguous() for t in xy]
+    flc = [t[:n_c].contiguous() for t in flags]
+    extra = {
+        "c1": (lambda: H._launch("ecdsa_sign", z8, d8, k1, comb, *xy, *flags,
+                                 B=Bk, entry="ecdsa_sign1"),
+               Bk, s2_bytes(Bk, 1),
+               (H.nonzero_digits(k1).double().mean().item(), 1, 1, 1)),
+        "483": (lambda: H._launch("ecdsa_sign", zc, dc, kc, comb, *xyc,
+                                  *flc, B=n_c, entry="ecdsa_sign4"),
+                n_c, s2_bytes(n_c, 4),
+                (*H.sign_work(kc, low[:, :n_c].contiguous()), 1, 1)),
+    }
+    for tag, (kern, n, nbytes, work) in extra.items():
+        ms = time_cuda(torch, kern, reps=20)
+        b_ms, _ = bound_ms(H.comb_op_counts(opc, *work), H, n, nbytes, clock)
+        row_ms, _ = bound_ms(H.comb_op_counts(opc, *work, batched=False), H,
+                             n, nbytes, clock)
+        log(f"time ecdsa_sign {'C = 1' if tag == 'c1' else 'C = 4'}: "
+            f"{ms:.4f} ms/call at B={n}, bound {b_ms:.4f} ms (a chain a "
+            f"block), {row_ms:.4f} ms (a chain a row)")
+        sign_records["ecdsa_sign"].update({f"ms_{tag}": ms,
+                                           f"bound_{tag}_ms": b_ms})
 
     # -- phase 5: the sign path at full width
     counts = sign_path(args, gen, dev, card, torch, F, E, H, ref)

@@ -3,7 +3,9 @@
 //
 // Representation: a field element is 8 little-endian 32-bit words, fully
 // reduced ([0, p) or [0, n)) after every operation.  One thread owns one
-// signature, so every value below lives in that thread's registers.
+// signature, so every value below lives in that thread's registers, but
+// for the steps a block takes together: the batch inversions (block_inv)
+// and S2's candidate rounds (sign_tile), whose state is in shared memory.
 //
 // * products: the 8x8-word product (64 32-bit products) and the squaring
 //   (36: 8 squares and 28 doubled cross products) into 16 words.  On the
@@ -22,7 +24,8 @@
 //   and the sign kernel's s = k^-1 (z + r d), which run in the Montgomery
 //   domain.
 // * k*G: a comb over a table of v * 2^(4j) * G (64 windows, one mixed
-//   addition each, no doubling), then x / Z by a Fermat inversion mod p.
+//   addition each, no doubling), then x / Z by a block's batch inversion
+//   mod p (Montgomery's trick: one Fermat chain a block).
 // * points: homogeneous projective (X:Y:Z), infinity (0:1:0), with the
 //   Renes-Costello-Batina complete formulas for a = 0 (b3 = 21), in the
 //   same operation order as the plain PyTorch engine, so every output is
@@ -30,7 +33,8 @@
 //
 // Every function is __host__ __device__ so that the arithmetic can also be
 // compiled by a host C++ compiler and checked against the exact-int
-// oracle without a card.
+// oracle without a card; only the warp and block steps (warp shuffles,
+// barriers, the occupancy query) are CUDA's alone.
 #pragma once
 #include <stdint.h>
 
@@ -624,6 +628,168 @@ HD void fn_inv_batch(uint32_t *w, const uint32_t *s, uint32_t *a,
 }
 
 // ---------------------------------------------------------------------------
+// Batch inversion mod p (Montgomery's trick), the same steps with plain
+// products: z_i^-1 mod p for T values with one Fermat chain in all.  A
+// value 0 mod p counts as 1 in the products and gets 0 (as fp_inv(0)), so
+// a point at infinity (Z = 0) gives x = y = 0 and leaves the others as
+// they are.
+
+// a = (z mod p, or 1 where that is 0); returns 1 where z = 0 mod p
+HD uint32_t fp_batch_enter(uint32_t a[8], const uint32_t z[8]) {
+    uint32_t p[8];
+    fe_set_p(p);
+    fe_reduce_once(a, z, p);
+    const uint32_t zero = fe_is_zero(a);
+    a[0] |= zero;
+    return zero;
+}
+
+// w = x * m, 0 where zero
+HD void fp_batch_out(uint32_t w[8], const uint32_t x[8], const uint32_t m[8],
+                     uint32_t zero) {
+    uint32_t z[8];
+    fp_mul(w, x, m);
+    fe_set_small(z, 0);
+    fe_select(w, 0u - zero, z, w);
+}
+
+// The sweep over T nonzero values a_i: exclusive prefix products into pre
+// (8 T words), one chain for the inverse of the total, then back down:
+// w_i = prefix_i * (prefix_i a_i)^-1 = a_i^-1.  w may not alias a.
+HD void fp_inv_sweep(uint32_t *w, const uint32_t *a, uint32_t *pre, int T) {
+    uint32_t acc[8], inv[8];
+    fe_set_small(acc, 1);
+    for (int i = 0; i < T; i++) {
+        fe_copy(pre + 8 * i, acc);
+        fp_mul(acc, acc, a + 8 * i);
+    }
+    fp_inv(inv, acc);
+    for (int i = T - 1; i >= 0; i--) {
+        fp_mul(w + 8 * i, pre + 8 * i, inv);
+        fp_mul(inv, inv, a + 8 * i);
+    }
+}
+
+// w_i = z_i^-1 mod p (0 -> 0) for T values of any 256 bits, 8 words each;
+// a and pre are scratch of 8 T words.  S1 and S2 run the same steps
+// across a block (block_inv below).
+HD void fp_inv_batch(uint32_t *w, const uint32_t *z, uint32_t *a,
+                     uint32_t *pre, int T) {
+    for (int i = 0; i < T; i++) fp_batch_enter(a + 8 * i, z + 8 * i);
+    fp_inv_sweep(w, a, pre, T);
+    for (int i = 0; i < T; i++) {
+        uint32_t p[8], t[8], zero[8];
+        fe_set_p(p);
+        fe_reduce_once(t, z + 8 * i, p);
+        fe_set_small(zero, 0);
+        fe_select(w + 8 * i, 0u - fe_is_zero(t), zero, w + 8 * i);
+    }
+}
+
+#ifdef __CUDACC__
+// The two moduli of a batch inversion: how a value enters the products,
+// the products' 1, the product, the sweep over the warps' products, and
+// the way out (the inverse plain in both).
+struct mod_p {
+    HD static uint32_t enter(uint32_t a[8], const uint32_t v[8]) {
+        return fp_batch_enter(a, v);
+    }
+    HD static void one(uint32_t r[8]) { fe_set_small(r, 1); }
+    HD static void mul(uint32_t r[8], const uint32_t a[8],
+                       const uint32_t b[8]) { fp_mul(r, a, b); }
+    HD static void sweep(uint32_t *w, const uint32_t *a, uint32_t *pre,
+                         int T) { fp_inv_sweep(w, a, pre, T); }
+    HD static void out(uint32_t w[8], const uint32_t x[8],
+                       const uint32_t m[8], uint32_t zero) {
+        fp_batch_out(w, x, m, zero);
+    }
+};
+struct mod_n {
+    HD static uint32_t enter(uint32_t a[8], const uint32_t v[8]) {
+        return fn_batch_enter(a, v);
+    }
+    HD static void one(uint32_t r[8]) { fe_set_rn(r); }
+    HD static void mul(uint32_t r[8], const uint32_t a[8],
+                       const uint32_t b[8]) { fn_mont_mul(r, a, b); }
+    HD static void sweep(uint32_t *w, const uint32_t *a, uint32_t *pre,
+                         int T) { fn_inv_sweep(w, a, pre, T); }
+    HD static void out(uint32_t w[8], const uint32_t x[8],
+                       const uint32_t m[8], uint32_t zero) {
+        fn_batch_out(w, x, m, zero);
+    }
+};
+
+// A warp's part of a block's batch inversion: the inclusive prefix and
+// suffix products of the warp's 32 entered values (5 shuffle steps each),
+// the warp's product to warp_prod (by lane 31), and x, the product of the
+// other 31 values.  Every lane of the warp takes part.
+template <class M>
+__device__ __forceinline__ void warp_scan_others(uint32_t x[8],
+                                                 const uint32_t a[8],
+                                                 uint32_t *warp_prod) {
+    const int lane = threadIdx.x & 31;
+    uint32_t pre[8], suf[8], up[8], dn[8];
+    fe_copy(pre, a);
+    fe_copy(suf, a);
+#pragma unroll 1
+    for (int dist = 1; dist < 32; dist <<= 1) {
+#pragma unroll
+        for (int k = 0; k < 8; k++) {
+            up[k] = __shfl_up_sync(0xFFFFFFFFu, pre[k], dist);
+            dn[k] = __shfl_down_sync(0xFFFFFFFFu, suf[k], dist);
+        }
+        if (lane >= dist) M::mul(pre, up, pre);
+        if (lane + dist < 32) M::mul(suf, suf, dn);
+    }
+    if (lane == 31) fe_copy(warp_prod, pre);
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+        up[k] = __shfl_up_sync(0xFFFFFFFFu, pre[k], 1);
+        dn[k] = __shfl_down_sync(0xFFFFFFFFu, suf[k], 1);
+    }
+    if (lane == 0) M::one(up);
+    if (lane == 31) M::one(dn);
+    M::mul(x, up, dn);
+}
+
+// Shared memory of a block's batch inversion over W warps: the warps'
+// products, their inverses and the sweep's prefix products.
+template <int W> struct block_inv_smem {
+    uint32_t prod[8 * W], inv[8 * W], pre[8 * W];
+};
+
+// w = v^-1 (0 -> 0) for each thread's v in the block's first nw warps
+// (1 <= nw <= W), by Montgomery's trick: warp scans, one Fermat chain on
+// thread 0 for the nw warp products, then w = (the product of the warp's
+// other values) * (the warp's product)^-1.  Every thread of the block
+// calls it (it synchronizes the block twice); the warps from nw on take
+// no part and their w is not set, so a block with few values pays for a
+// sweep over the warps that hold them.  Lanes of those warps without a
+// value pass v = 1.
+template <class M, int W>
+__device__ __forceinline__ void block_inv(uint32_t w[8], const uint32_t v[8],
+                                          int nw, block_inv_smem<W> &sm) {
+    const int wid = threadIdx.x >> 5;
+    const bool live = wid < nw;
+    uint32_t a[8], x[8], zero = 0;
+    if (live) {
+        zero = M::enter(a, v);
+        warp_scan_others<M>(x, a, sm.prod + 8 * wid);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) M::sweep(sm.inv, sm.prod, sm.pre, nw);
+    __syncthreads();
+    if (live) M::out(w, x, sm.inv + 8 * wid, zero);
+}
+
+// The warps that hold the first n threads of a block of W warps.
+HD int warps_for(int n, int W) {
+    const int nw = (n + 31) / 32;
+    return nw < W ? nw : W;
+}
+#endif
+
+// ---------------------------------------------------------------------------
 // Points: projective (X:Y:Z), RCB complete formulas for a = 0
 
 struct pt {
@@ -1083,13 +1249,15 @@ HD void dual_scan_one(const Q &qsel, const uint32_t *gs, long long stride,
 #define COMB_WINDOWS 64
 #define COMB_ENTRY_WORDS 16                   // affine x, then y
 #define COMB_ROW_WORDS (15 * COMB_ENTRY_WORDS)
+#define COMB_TABLE_BYTES (COMB_WINDOWS * COMB_ROW_WORDS * 4)   // 61,440
 
-// 8 words of a read-only table: two 16-byte loads through the read-only
-// data cache on the device (src 16-byte aligned).
-HD void fe_ldg(uint32_t r[8], const uint32_t *src) {
+// 8 words of the comb table (src 16-byte aligned): two 16-byte loads on
+// the device, through the read-only data cache from global memory (ldg),
+// else plain loads (the block's copy in shared memory).
+template <bool LDG> HD void comb_load(uint32_t r[8], const uint32_t *src) {
 #ifdef __CUDA_ARCH__
-    const uint4 a = __ldg(reinterpret_cast<const uint4 *>(src));
-    const uint4 b = __ldg(reinterpret_cast<const uint4 *>(src) + 1);
+    const uint4 *v = reinterpret_cast<const uint4 *>(src);
+    const uint4 a = LDG ? __ldg(v) : v[0], b = LDG ? __ldg(v + 1) : v[1];
     r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
     r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
 #else
@@ -1112,7 +1280,10 @@ HD uint32_t comb_digit(const uint32_t k[8], int j) {
 // window is one mixed addition (pt_add_z1) of entry (j, d_j - 1).  A digit
 // 0 adds nothing: the table holds no point at infinity, which a mixed
 // addition could not take.  The loop holds one copy of pt_add_z1; the
-// threads of a warp read entries of the same row j in each step.
+// threads of a warp read entries of the same row j in each step.  LDG:
+// comb is the table in global memory, read through the read-only cache;
+// else the block's copy in shared memory (comb_table_to_shared).
+template <bool LDG = true>
 HD void comb_mul_one(pt &acc, const uint32_t k[8], const uint32_t *comb) {
     uint32_t x[8], y[8];
     pt_set_inf(acc);
@@ -1122,68 +1293,157 @@ HD void comb_mul_one(pt &acc, const uint32_t k[8], const uint32_t *comb) {
         if (d == 0) continue;
         const uint32_t *e = comb + j * COMB_ROW_WORDS
                             + (int)(d - 1) * COMB_ENTRY_WORDS;
-        fe_ldg(x, e);
-        fe_ldg(y, e + 8);
+        comb_load<LDG>(x, e);
+        comb_load<LDG>(y, e + 8);
         pt_add_z1(acc, acc, x, y);
     }
 }
 
-// S1's body: k*G as normalized affine (x, y); infinity gives (0, 0).
-HD void fixed_base_one(const uint32_t k[8], const uint32_t *comb,
-                       uint32_t x[8], uint32_t y[8]) {
-    pt acc;
-    uint32_t zi[8];
-    comb_mul_one(acc, k, comb);
-    fp_inv(zi, acc.z);
-    fp_mul(x, acc.x, zi);
-    fp_mul(y, acc.y, zi);
+#ifdef __CUDACC__
+// The comb table into the block's shared memory (dst, COMB_TABLE_BYTES,
+// 16-byte aligned) by one bulk asynchronous copy (cp.async.bulk, the
+// TMA's one-dimensional form) that completes on the mbarrier bar; every
+// thread of the block calls it and returns when the table has landed.
+__device__ __forceinline__ void comb_table_to_shared(uint32_t *dst,
+                                                     const uint32_t *src,
+                                                     uint64_t *bar) {
+#ifdef __CUDA_ARCH__
+    const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b));
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(b), "r"(COMB_TABLE_BYTES) : "memory");
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                     "complete_tx::bytes [%0], [%1], %2, [%3];"
+                     :: "r"((uint32_t)__cvta_generic_to_shared(dst)),
+                        "l"(src), "r"(COMB_TABLE_BYTES), "r"(b)
+                     : "memory");
+    }
+    __syncthreads();                  // the barrier is set up before the wait
+    asm volatile("{\n.reg .pred p;\nWAIT%=:\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+                 "@!p bra WAIT%=;\n}" :: "r"(b) : "memory");
+#else
+    if (threadIdx.x == 0)
+        for (int i = 0; i < COMB_TABLE_BYTES / 4; i++) dst[i] = src[i];
+    __syncthreads();
+#endif
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// S2: a tile of rows signed in candidate rounds, compacted across a block
+//
+// A block signs a tile of up to T rows.  Every row starts pending with no
+// candidate tried.  In a round the p pending rows are packed in list[0,
+// p), and thread t takes pending row t mod p with its candidate nxt + t /
+// p (a job), nxt being the row's first candidate not yet tried: the low p
+// threads take each row's next candidate, and the threads above take the
+// candidates after it (fill), as far as there are C.  A job computes
+// R = k*G and, after the block's batch inversion mod p, r = x(R) mod n
+// and whether r is low (bit 255 clear) and nonzero.  Thread i < p then
+// decides pending row i from its jobs in candidate order: the first low r
+// is taken (grind); where every candidate is tried and none is low,
+// candidate 0's; else the row stays pending and is packed again.  Every
+// round tries at least one more candidate of each pending row, so a tile
+// takes at most C rounds.  The device kernel (ecdsa_sign.cu) runs the
+// steps below with barriers between them; a host test runs them as loops
+// over the threads.
+
+// A tile's state in shared memory.  r: a row's r, candidate 0's until a
+// low one (word k of row i at r[k T + i]); jr: a job's r (word k of
+// thread t's at jr[k T + t]).
+template <int T> struct sign_tile {
+    uint32_t r[8 * T];
+    uint32_t jr[8 * T];
+    uint16_t list[T];     // the pending rows, packed
+    uint8_t nxt[T];       // a row's first candidate not yet tried
+    uint8_t sel[T];       // a decided row's candidate
+    uint8_t grind[T];     // a decided row's r is low
+    uint8_t jlow[T];      // a job's r is low and nonzero
+    int p;                // pending rows
+};
+
+// A tile of n rows, all pending, none tried: thread t's part.
+template <int T> HD void sign_tile_start(sign_tile<T> &s, int t, int n) {
+    if (t < n) {
+        s.list[t] = (uint16_t)t;
+        s.nxt[t] = 0;
+    }
+    if (t == 0) s.p = n;
 }
 
-// S2's body: ECDSA signing with low-R grinding over C nonce candidates
-// (C = 1: one nonce, no grinding); word w of candidate c is at
-// ks[(8 c + w) * stride].  Candidate by candidate: R = k*G by the comb,
-// r = x(R) mod n (x < p < 2n: one conditional subtraction); the first r
-// that is low (bit 255 clear) and nonzero is taken, else candidate 0's.
-// Then s = k^-1 (z + r d) mod n by Montgomery products (R = 2^256): z
-// and d reduced mod n once, r R = r (R^2 mod n), r d = (r R) d, k R =
-// k (R^2 mod n), k^-1 R = (k R)^(n-2), s = (k^-1 R)(z + r d).  Low-S:
-// s > (n - 1) / 2 becomes n - s.  ok: r and s nonzero; grind: a low-R
-// candidate was found.
-template <int C>
-HD void sign_one(const uint32_t z[8], const uint32_t d[8],
-                 const uint32_t *ks, long long stride, const uint32_t *comb,
-                 uint32_t r[8], uint32_t s[8], uint32_t &ok,
-                 uint32_t &grind) {
-    uint32_t n[8], k[8], ksel[8], x[8], rc[8], zi[8];
-    pt acc;
+// Thread t's job in a round with p > 0 rows pending: the row (its index in
+// the tile), or -1 for none, and the candidate.
+template <int C, int T> HD int sign_job(const sign_tile<T> &s, int t, int p,
+                                        int &cand) {
+    const int level = t / p;
+    const int row = s.list[t - level * p];
+    cand = s.nxt[row] + level;
+    return cand < C ? row : -1;
+}
+
+// A job's r = x(R) mod n from X and zi = Z^-1 mod p of R = (X : Y : Z),
+// and whether it is low and nonzero, into thread t's slot (x < p < 2n: one
+// conditional subtraction).
+template <int T> HD void sign_job_r(sign_tile<T> &s, int t,
+                                    const uint32_t X[8],
+                                    const uint32_t zi[8]) {
+    uint32_t n[8], x[8], rc[8];
     fe_set_n(n);
-    grind = 0;
-#pragma unroll 1
-    for (int c = 0; c < C; c++) {
-        fe_load(k, ks + (long long)(8 * c) * stride, stride);
-        comb_mul_one(acc, k, comb);
-        fp_inv(zi, acc.z);
-        fp_mul(x, acc.x, zi);
-        fe_reduce_once(rc, x, n);
-        const uint32_t low = ((rc[7] >> 31) ^ 1u) & (fe_is_zero(rc) ^ 1u);
-        if (c == 0 || low) {
-            fe_copy(r, rc);
-            fe_copy(ksel, k);
-        }
-        if (low) {
-            grind = 1;
-            break;
-        }
+    fp_mul(x, X, zi);
+    fe_reduce_once(rc, x, n);
+#pragma unroll
+    for (int k = 0; k < 8; k++) s.jr[k * T + t] = rc[k];
+    s.jlow[t] = (uint8_t)(((rc[7] >> 31) ^ 1u) & (fe_is_zero(rc) ^ 1u));
+}
+
+// Thread t < p decides pending row list[t] (returned in row) from its jobs
+// of the round, at threads t, t + p, ... in candidate order; returns 1
+// where the row stays pending.
+template <int C, int T> HD uint32_t sign_decide(sign_tile<T> &s, int t,
+                                                int p, int &row) {
+    row = s.list[t];
+    const int nx = s.nxt[row];
+    const int reach = (T - 1 - t) / p + 1;
+    const int jobs = C - nx < reach ? C - nx : reach;
+    int j = 0;
+    while (j < jobs && !s.jlow[t + j * p]) j++;
+    if (nx == 0) {                            // candidate 0's r
+#pragma unroll
+        for (int k = 0; k < 8; k++) s.r[k * T + row] = s.jr[k * T + t];
     }
-    uint32_t r2[8], t[8], u[8], kinv[8], zr[8], dr[8], half[8], neg[8];
+    if (j < jobs) {
+        const int src = t + j * p;
+#pragma unroll
+        for (int k = 0; k < 8; k++) s.r[k * T + row] = s.jr[k * T + src];
+        s.sel[row] = (uint8_t)(nx + j);
+        s.grind[row] = 1;
+        return 0;
+    }
+    s.nxt[row] = (uint8_t)(nx + jobs);
+    if (nx + jobs < C) return 1;
+    s.sel[row] = 0;
+    s.grind[row] = 0;
+    return 0;
+}
+
+// The end of a row: s = k^-1 (z + r d) mod n by Montgomery products (R =
+// 2^256) from kinv = k^-1 R mod n: z and d reduced mod n once, r R = r
+// (R^2 mod n), r d = (r R) d, s = kinv (z + r d).  Low-S: s > (n - 1) / 2
+// becomes n - s.  ok: r and s nonzero.
+HD void sign_finish(const uint32_t z[8], const uint32_t d[8],
+                    const uint32_t r[8], const uint32_t kinv[8],
+                    uint32_t s[8], uint32_t &ok) {
+    uint32_t n[8], r2[8], t[8], u[8], zr[8], dr[8], half[8], neg[8];
+    fe_set_n(n);
     fe_set_r2n(r2);
     fe_reduce_once(zr, z, n);
     fe_reduce_once(dr, d, n);
     fn_mont_mul(t, r, r2);            // r R
     fn_mont_mul(t, t, dr);            // r d
     fn_add(u, zr, t);                 // z + r d
-    fn_mont_mul(t, ksel, r2);         // k R
-    fn_inv_mont(kinv, t);             // k^-1 R
     fn_mont_mul(s, kinv, u);          // k^-1 (z + r d)
 #pragma unroll
     for (int i = 0; i < 7; i++)       // (n - 1) / 2 = n >> 1
@@ -1194,3 +1454,51 @@ HD void sign_one(const uint32_t z[8], const uint32_t d[8],
     fe_select(s, 0u - high, neg, s);
     ok = (fe_is_zero(r) ^ 1u) & (fe_is_zero(s) ^ 1u);
 }
+
+#ifdef __CUDACC__
+// Blocks of a kernel an SM holds at `threads` a block and `smem` bytes of
+// dynamic shared memory (the occupancy query), or -1 on an error.  Where
+// smem is over the 48 KB a kernel may take without asking, it first
+// allows the kernel that much, which its launch needs too.
+static int sm_blocks(const void *kernel, int threads, int smem) {
+    int n = 0;
+    if ((smem > 48 * 1024
+         && cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem) != cudaSuccess)
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                         smem) != cudaSuccess)
+        return -1;
+    return n;
+}
+
+// Blocks of a kernel the card holds at once: its SMs times sm_blocks,
+// cached per device in cache (64 entries, zeroed, one array a kernel); 0
+// on an error.
+static int card_blocks(const void *kernel, int threads, int smem,
+                       int *cache) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+        return 0;
+    if (cache[dev] == 0
+        && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+               == cudaSuccess) {
+        const int per_sm = sm_blocks(kernel, threads, smem);
+        cache[dev] = per_sm > 0 ? sms * per_sm : 0;
+    }
+    return cache[dev];
+}
+
+// S1's and S2's launch geometry: B rows over at most cap blocks of
+// `threads`, each block looping over tiles of `rows` (the rows spread
+// over every block, at most a block's threads), on a grid of no more
+// blocks than tiles.  rows and grid are 0 where B or cap is.
+struct tiling { int rows, grid; };
+static tiling spread(int B, int cap, int threads) {
+    if (B <= 0 || cap <= 0) return {0, 0};
+    int rows = (B + cap - 1) / cap;
+    rows = rows < threads ? rows : threads;
+    const int tiles = (B + rows - 1) / rows;
+    return {rows, tiles < cap ? tiles : cap};
+}
+#endif

@@ -52,29 +52,10 @@ verify_prep_kernel(const uint32_t *__restrict__ qx,
 
     uint32_t x[8], zero = 0;
     if (!chain_warp) {
-        uint32_t sv[8], pre[8], suf[8], up[8], dn[8];
+        uint32_t sv[8], a[8];
         if (live) fe_load(sv, s + i, B); else fe_set_small(sv, 1);
-        zero = fn_batch_enter(pre, sv);
-        fe_copy(suf, pre);
-#pragma unroll 1
-        for (int dist = 1; dist < 32; dist <<= 1) {
-#pragma unroll
-            for (int k = 0; k < 8; k++) {
-                up[k] = __shfl_up_sync(0xFFFFFFFFu, pre[k], dist);
-                dn[k] = __shfl_down_sync(0xFFFFFFFFu, suf[k], dist);
-            }
-            if (lane >= dist) fn_mont_mul(pre, up, pre);
-            if (lane + dist < 32) fn_mont_mul(suf, suf, dn);
-        }
-        if (lane == 31) fe_copy(warp_prod + 8 * wid, pre);
-#pragma unroll
-        for (int k = 0; k < 8; k++) {
-            up[k] = __shfl_up_sync(0xFFFFFFFFu, pre[k], 1);
-            dn[k] = __shfl_down_sync(0xFFFFFFFFu, suf[k], 1);
-        }
-        if (lane == 0) fe_set_rn(up);
-        if (lane == 31) fe_set_rn(dn);
-        fn_mont_mul(x, up, dn);
+        zero = fn_batch_enter(a, sv);
+        warp_scan_others<mod_n>(x, a, warp_prod + 8 * wid);
     }
     __syncthreads();
 

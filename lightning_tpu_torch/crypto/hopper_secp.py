@@ -42,7 +42,13 @@ take and return (8, B) words (``field.words_from_be_bytes`` makes them
 from bytes on the host), and read the comb table of v * 2^(4j) * G as
 (64, 15, 2, 8) words; their work depends on the data (the nonzero digits
 of each scalar, and for S2 the candidates tried), which
-``comb_op_counts`` counts.
+``comb_op_counts`` counts.  Both invert by Montgomery's trick, one Fermat
+chain a block, as K1 does; S2 signs a tile of rows a block in candidate
+rounds, each computing k*G only for the rows still pending, packed onto
+the low threads, with idle threads taking pending rows' later
+candidates; both run one block of 512 threads an SM, the grid sized from
+the occupancy query and the rows spread over it; S1 reads the comb table
+from a copy in shared memory (csrc/ecdsa_sign.cu, csrc/fixed_base.cu).
 """
 from __future__ import annotations
 
@@ -66,14 +72,22 @@ from .field import FN, FP, NLIMBS
 PRODUCTS = {"mul_p": 73, "sqr_p": 45, "mul_n": 136, "sqr_n": 108,
             "mul_small_p": 9}
 
-# K1 inverts s by Montgomery's trick, one Fermat chain per block of
-# PREP_THREADS signatures (csrc/verify_prep.cu): per signature 13
-# Montgomery products (entering the domain, 5 + 5 warp scan steps, the
-# product of the warp's other lanes, the output), per block the chain and
-# the 3 x warps + 1 products of the sweep over the warps' products.
+# K1, S1 and S2 invert by Montgomery's trick, one Fermat chain a block
+# (block_inv and K1's scan in csrc/secp256k1.cuh).  Their bound counts the
+# trick's fewest products: per value BATCH_MUL_VALUE (its prefix product,
+# its inverse from the prefix before it and the running inverse, the
+# running inverse times it), one more mod n to enter the Montgomery
+# domain; per block the chain, one more mod n to leave the domain.  The
+# kernels take 12 a value (5 + 5 warp scan steps, the product of the
+# warp's other lanes, the output) and 3 a warp around the chain: that is
+# the design's overhead, not in the bound.  K1's block is PREP_THREADS
+# signatures (csrc/verify_prep.cu), S1's and S2's SIGN_THREADS threads
+# (csrc/fixed_base.cu S1_THREADS, csrc/ecdsa_sign.cu S2_THREADS;
+# tests/test_torch_kernels.py holds the three equal).  The sign kernels'
+# bound counts full blocks: the fewest products.
 PREP_THREADS = 256
-PREP_MUL_N_SIG = 13
-PREP_MUL_N_BLOCK = 3 * (PREP_THREADS // 32) + 1
+SIGN_THREADS = 512
+BATCH_MUL_VALUE = 3
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -512,18 +526,17 @@ KERNELS = (verify_prep_core, build_tables, glv_scan, glv_scan2, dual_mul_v2,
            dual_mul_planes, fixed_base_affine, ecdsa_sign)
 
 
-def _batch_inversion_counts(plain: dict, chain: dict) -> dict[str, float]:
-    """K1's operations per signature: its plain version's (the square
-    root, x^3, y^2 and a Fermat chain per signature) less that chain,
-    plus the batch inversion's PREP_MUL_N_SIG Montgomery products and
-    1/PREP_THREADS of the block's chain and PREP_MUL_N_BLOCK products."""
-    out = {k: v - chain.get(k, 0) for k, v in plain.items()}
+def _batch_inversion_counts(chain: dict, kind: str, threads: int,
+                            domain: int) -> dict[str, float]:
+    """Field operations a value of a batch inversion over blocks of
+    `threads`: BATCH_MUL_VALUE products of `kind` (plus `domain`, 1 mod n
+    for entering the Montgomery domain), and 1/threads of the block's
+    Fermat chain `chain` (plus `domain` for leaving it)."""
     block = dict(chain)
-    block["mul_n"] = block.get("mul_n", 0) + PREP_MUL_N_BLOCK
-    for k, v in block.items():
-        out[k] = out.get(k, 0) + v / PREP_THREADS
-    out["mul_n"] += PREP_MUL_N_SIG
-    return {k: v for k, v in out.items() if v}
+    block[kind] = block.get(kind, 0) + domain
+    out = {k: v / threads for k, v in block.items()}
+    out[kind] += BATCH_MUL_VALUE + domain
+    return out
 
 
 def field_op_counts() -> dict[str, dict[str, float]]:
@@ -535,12 +548,14 @@ def field_op_counts() -> dict[str, dict[str, float]]:
     product by that one is not work the function needs, and is not
     counted.  The window scans run one window and count it once per
     window of the kernel (every window does the same operations).  K1's
-    entry counts the kernel's batch inversion
-    (``_batch_inversion_counts``); "verify_prep_chain_per_signature" is
-    its plain version's count, a Fermat chain per signature, the design
-    K1 had before.  S1's and S2's work depends on the data: "comb_add"
-    (one window of the comb), "inv_p" and "inv_n" (the kernels' Fermat
-    chains) are the units ``comb_op_counts`` adds up."""
+    entry counts the kernel's batch inversion (its plain version's count
+    less the chain inv_n, plus ``_batch_inversion_counts`` of it);
+    "verify_prep_chain_per_signature" is its plain version's count, a
+    Fermat chain per signature, the design K1 had before.  S1's and S2's
+    work depends on the data: "comb_add" (one window of the comb), and a
+    value's inversion, "inv_p_batch" and "inv_n_batch" by a block's batch
+    inversion as the kernels invert, "inv_p" and "inv_n" by a Fermat chain
+    of its own, are the units ``comb_op_counts`` adds up."""
     counts: dict[str, int] = {}
     real_mul, real_small, real_one = F.mul, F.mul_small, F.one
     ones: list[torch.Tensor] = []    # Z = 1 operands while a run takes them
@@ -606,34 +621,47 @@ def field_op_counts() -> dict[str, dict[str, float]]:
     finally:
         F.mul, F.mul_small = real_mul, real_small
     out["verify_prep_chain_per_signature"] = out["verify_prep"]
-    out["verify_prep"] = _batch_inversion_counts(out["verify_prep"],
-                                                 out["inv_n"])
+    prep = {k: v - out["inv_n"].get(k, 0)
+            for k, v in out["verify_prep"].items()}
+    for k, v in _batch_inversion_counts(out["inv_n"], "mul_n",
+                                        PREP_THREADS, 1).items():
+        prep[k] = prep.get(k, 0) + v
+    out["verify_prep"] = {k: v for k, v in prep.items() if v}
+    out["inv_p_batch"] = _batch_inversion_counts(out["inv_p"], "mul_p",
+                                                 SIGN_THREADS, 0)
+    out["inv_n_batch"] = _batch_inversion_counts(out["inv_n"], "mul_n",
+                                                 SIGN_THREADS, 1)
     return out
 
 
-# S2's Montgomery products a row besides its chain mod n: r and k into
-# the domain, r d, and s = (k^-1 R)(z + r d)
+# S2's Montgomery products a row besides its inversion: r into the
+# domain, r d, s = (k^-1 R)(z + r d), and k into the domain (a chain a row)
+# or k^-1 back into it (the batch inversion's output is plain)
 SIGN_MUL_N = 4
 
 
 def comb_op_counts(units: dict, adds: float, points: float, coords: int,
-                   signs: float) -> dict[str, float]:
+                   signs: float, batched: bool = True) -> dict[str, float]:
     """Field operations per row of S1 or S2 for what the data needs:
     `adds` comb additions (the nonzero digits of the scalars the kernel
-    multiplies), `points` conversions to affine (a Fermat chain mod p and
-    `coords` products each), `signs` ECDSA finishes (the chain mod n and
-    SIGN_MUL_N Montgomery products).  `units` is ``field_op_counts()``,
-    which gives the comb addition and the two chains."""
+    multiplies), `points` conversions to affine (an inversion mod p and
+    `coords` products each), `signs` ECDSA finishes (an inversion mod n
+    and SIGN_MUL_N Montgomery products).  Batched, as the kernels run, an
+    inversion is a value's share of a block's batch inversion
+    ("inv_p_batch", "inv_n_batch"); else a Fermat chain of its own
+    ("inv_p", "inv_n"), the design S1 and S2 had before.  `units` is
+    ``field_op_counts()``."""
     out: dict[str, float] = {}
 
     def put(counts, times):
         for k, v in counts.items():
             out[k] = out.get(k, 0) + v * times
 
+    batch = "_batch" if batched else ""
     put(units["comb_add"], adds)
-    put(units["inv_p"], points)
+    put(units["inv_p" + batch], points)
     put({"mul_p": coords}, points)
-    put(units["inv_n"], signs)
+    put(units["inv_n" + batch], signs)
     put({"mul_n": SIGN_MUL_N}, signs)
     return {k: v for k, v in out.items() if v}
 

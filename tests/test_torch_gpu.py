@@ -301,14 +301,23 @@ def _sign_key(tag: bytes) -> int:
         (ref.N - 1) + 1
 
 
+def _int_words(vals, dev):
+    return F.words_from_be_bytes(F.ints_to_be_bytes(vals), dev)
+
+
+def _sign_planes(zs, ds, ks, C, dev):
+    return (_int_words(zs, dev), _int_words(ds, dev),
+            torch.stack([_int_words([k[c] for k in ks], dev)
+                         for c in range(C)]))
+
+
 def _sign_inputs(gen, n, C, dev):
     """z, d (8, n) and ks (C, 8, n) words: row 0 the hash sha256(b"h14")
     with key from b"d14" and its RFC6979 candidates (no low R among the
     four), rows 1-2 z = 2^256 - 1 and z = n + 5, row 3 candidates k = 1,
-    n - 1, 2^128 and 2^252 (digits of 0), the rest random."""
+    n - 1, 2^128 and 2^252 (digits of 0), the rest random (as far as n
+    reaches)."""
     import hashlib
-
-    from lightning_tpu_torch.crypto import engines as E
 
     def rnd(m):
         return int.from_bytes(gen.bytes(32), "big") % m
@@ -319,14 +328,22 @@ def _sign_inputs(gen, n, C, dev):
     h14 = hashlib.sha256(b"h14").digest()
     zs[0], ds[0] = int.from_bytes(h14, "big"), _sign_key(b"d14")
     ks[0] = E.rfc6979_candidates(h14, ds[0])
-    zs[1], zs[2] = 2**256 - 1, ref.N + 5
-    ks[3] = [1, ref.N - 1, 2**128, 2**252]
+    edges = [(1, "z", 2**256 - 1), (2, "z", ref.N + 5),
+             (3, "k", [1, ref.N - 1, 2**128, 2**252])]
+    for i, what, v in edges[:max(n - 1, 0)]:
+        (zs if what == "z" else ks)[i] = v
+    return _sign_planes(zs, ds, ks, C, dev)
 
-    def words(vals):
-        return F.words_from_be_bytes(F.ints_to_be_bytes(vals), dev)
 
-    return (words(zs), words(ds),
-            torch.stack([words([k[c] for k in ks]) for c in range(C)]))
+def _high_r_nonces(gen, count):
+    """`count` random nonces whose r = x(k*G) mod n has bit 255 set, picked
+    with the exact-int oracle."""
+    out = []
+    while len(out) < count:
+        k = int.from_bytes(gen.bytes(32), "big") % (ref.N - 1) + 1
+        if ref.point_mul(k, ref.G).x % ref.N >= 2**255:
+            out.append(k)
+    return out
 
 
 def _same_sign(got, want):
@@ -334,25 +351,34 @@ def _same_sign(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize("n", [B, FULL], ids=["small", "full"])
+# S1 and S2 at one row, a commitment's 483, a batch that is not a multiple
+# of a block, and the bucket and a ragged 37
+SIGN_SIZES = [1, 483, B, FULL]
+SIGN_IDS = ["one", "commitment", "small", "full"]
+
+
+@pytest.mark.parametrize("n", SIGN_SIZES, ids=SIGN_IDS)
 def test_fixed_base_kernel_matches_plain(cuda, n):
     """S1 against its plain version; the first rows are k = 0, 1, 2, n - 1,
     n, 2^256 - 1, 2^128 and 2^252 (infinity, and digits of 0)."""
     gen = np.random.default_rng(80)
     ks = [int.from_bytes(gen.bytes(32), "big") for _ in range(n)]
-    ks[:8] = [0, 1, 2, ref.N - 1, ref.N, 2**256 - 1, 2**128, 2**252]
-    k8 = F.words_from_be_bytes(F.ints_to_be_bytes(ks), cuda)
+    edges = [0, 1, 2, ref.N - 1, ref.N, 2**256 - 1, 2**128, 2**252]
+    ks[:min(n, 8)] = edges[:min(n, 8)]
+    k8 = _int_words(ks, cuda)
     before = H.fixed_base_affine.launches
     got = H.fixed_base_affine(k8)
     assert H.fixed_base_affine.launches == before + 1
     _same_sign(got, H.fixed_base_affine_plain(k8))
     x = F.words_to_be_bytes(got[0])
-    assert int.from_bytes(x[3].tobytes(), "big") == ref.G.x
-    assert not x[0].any() and not x[4].any()
+    assert not x[0].any()
+    if n > 4:
+        assert int.from_bytes(x[3].tobytes(), "big") == ref.G.x
+        assert not x[4].any()
 
 
 @pytest.mark.parametrize("C", [1, 4])
-@pytest.mark.parametrize("n", [B, FULL], ids=["small", "full"])
+@pytest.mark.parametrize("n", SIGN_SIZES, ids=SIGN_IDS)
 def test_ecdsa_sign_kernel_matches_plain(cuda, C, n):
     gen = np.random.default_rng(81 + C)
     z8, d8, ks8 = _sign_inputs(gen, n, C, cuda)
@@ -364,6 +390,38 @@ def test_ecdsa_sign_kernel_matches_plain(cuda, C, n):
     assert bool(got[2].all())
     if C == 4:
         assert not bool(got[3][0])                  # h14: candidate 0
+
+
+@pytest.mark.parametrize("n", [483, FULL], ids=["commitment", "full"])
+def test_ecdsa_sign_kernel_rows_past_three_high_candidates(cuda, n):
+    """S2 (C = 4) on a batch in which every row's first three candidates
+    have a high r, drawn from a pool picked with the exact-int oracle; the
+    fourth is random (low about half the time), and every ninth row's too
+    is from the pool (no low r among four: candidate 0's).  Against the
+    plain version and, on a sample, the exact-int rule."""
+    gen = np.random.default_rng(84)
+    pool = _high_r_nonces(gen, 256)
+
+    def rnd(m):
+        return int.from_bytes(gen.bytes(32), "big") % m
+
+    zs = [rnd(2**256) for _ in range(n)]
+    ds = [rnd(ref.N - 1) + 1 for _ in range(n)]
+    pick = gen.integers(0, len(pool), (n, 4))
+    ks = [[pool[j] for j in pick[i, :3]]
+          + [pool[pick[i, 3]] if i % 9 == 0 else rnd(ref.N - 1) + 1]
+          for i in range(n)]
+    z8, d8, ks8 = _sign_planes(zs, ds, ks, 4, cuda)
+    got = H.ecdsa_sign(z8, d8, ks8)
+    _same_sign(got, H.ecdsa_sign_plain(z8, d8, ks8))
+    grind = got[3].cpu().numpy()
+    assert not grind[::9].any() and grind.sum() > n // 4
+    r, s = (F.words_to_be_bytes(w) for w in got[:2])
+    for i in sorted({0, 1, n - 1, *gen.choice(n, 24, replace=False)}):
+        want = E.sign_with_candidates(zs[i], ds[i], ks[i])
+        assert (int.from_bytes(r[i].tobytes(), "big"),
+                int.from_bytes(s[i].tobytes(), "big"),
+                bool(got[2][i]), bool(grind[i])) == want
 
 
 def test_sign_entry_points_on_card_match_oracle(cuda):

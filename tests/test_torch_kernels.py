@@ -6,11 +6,14 @@ everything is exact.  B = 8, CPU tensors (the wrappers take the plain
 versions for CPU tensors)."""
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from lightning_tpu.crypto import ref_python as ref
+from lightning_tpu_torch import _build
 from lightning_tpu_torch.crypto import engines as E
 from lightning_tpu_torch.crypto import field as F
 from lightning_tpu_torch.crypto import glv as GLV
@@ -157,7 +160,52 @@ def test_field_op_counts():
     chain = {"sqr_n": 255, "mul_n": 81}
     sqrt = {"sqr_p": 1 + 253 + 3, "mul_p": 1 + 13 + 1}
     assert counts["verify_prep_chain_per_signature"] == {**sqrt, **chain}
-    # K1's batch inversion: 13 Montgomery products a signature, and one
-    # chain plus 3 x 8 warps + 1 sweep products a block of 256
+    # K1's batch inversion, the fewest products of Montgomery's trick: 3
+    # Montgomery products a signature and 1 to enter the domain, and one
+    # chain plus 1 to leave it a block of 256
     assert counts["verify_prep"] == {
-        **sqrt, "sqr_n": 255 / 256, "mul_n": 13 + (81 + 25) / 256}
+        **sqrt, "sqr_n": 255 / 256, "mul_n": 4 + (81 + 1) / 256}
+
+
+def test_comb_op_counts_batched_and_per_row():
+    """S1's and S2's inversions as the kernels run them, one batch
+    inversion a block of 512 (Montgomery's trick's 3 products a value mod
+    p, 4 mod n with entering the Montgomery domain; the chain, one more mod
+    n, a block), against a Fermat chain a value (inv_p: 255
+    squarings + 15 multiplications; inv_n: 255 + 81): the two designs'
+    counts differ by exactly that swap, a point's and a signature's."""
+    counts = H.field_op_counts()
+    assert counts["inv_p"] == {"sqr_p": 255, "mul_p": 15}
+    assert counts["inv_n"] == {"sqr_n": 255, "mul_n": 81}
+    assert counts["inv_p_batch"] == {"sqr_p": 255 / 512,
+                                     "mul_p": 3 + 15 / 512}
+    assert counts["inv_n_batch"] == {"sqr_n": 255 / 512,
+                                     "mul_n": 4 + (81 + 1) / 512}
+    adds, points, signs = 112.5, 1.875, 1.0
+    batched = H.comb_op_counts(counts, adds, points, 1, signs)
+    per_row = H.comb_op_counts(counts, adds, points, 1, signs,
+                               batched=False)
+    assert set(batched) == set(per_row)
+    for kind in batched:
+        mod = kind[-1]
+        swap = (points if mod == "p" else signs) * (
+            counts[f"inv_{mod}_batch"].get(kind, 0)
+            - counts[f"inv_{mod}"].get(kind, 0))
+        assert batched[kind] - per_row[kind] == pytest.approx(swap)
+    comb = {k: v * adds for k, v in counts["comb_add"].items()}
+    assert per_row == pytest.approx({
+        "sqr_p": 255 * points, "sqr_n": 255 * signs,
+        "mul_p": comb["mul_p"] + (15 + 1) * points,
+        "mul_small_p": comb["mul_small_p"],
+        "mul_n": (81 + H.SIGN_MUL_N) * signs})
+
+
+@pytest.mark.parametrize("kernel,define,want", [
+    ("verify_prep", "PREP_THREADS", H.PREP_THREADS),
+    ("fixed_base", "S1_THREADS", H.SIGN_THREADS),
+    ("ecdsa_sign", "S2_THREADS", H.SIGN_THREADS)])
+def test_block_sizes_match_sources(kernel, define, want):
+    """The block sizes the bounds count are the ones the kernels launch."""
+    with open(_build.source_path(kernel)) as f:
+        got = re.findall(rf"^#define {define} (\d+)\b", f.read(), re.M)
+    assert got == [str(want)]
