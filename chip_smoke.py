@@ -118,13 +118,38 @@ Phases, each fatal on failure:
    4 rows, checked here by the host oracle, are phase 3's too); one
    supervised sign_htlc_batch and check_sigs_batch of phase 5's width,
    both flight records "ok", clntpu_sign_total{path="device"} counted.
+9. supervised routing and the observability spine over phase 7's graph,
+   every journey sampled: (9.1) the route mix's 1,024 getroute queries
+   through RouteService in waves of 64 and the mcf mix's 64 getroutes
+   (each with a journey key) through McfService in waves of 8 (a flush a
+   wave, for the flush percentiles), with the launch counters set to 0
+   just before and read just after: the answers solve_batch's and
+   solve_mcf_batch's on the same graph, one flight record a flush, all
+   "ok", the clntpu_dispatches_total deltas the records', the device
+   queries counted, R1's and R2's launches the records' batches, the
+   records' staged bytes the clntpu_transfer_bytes_total deltas; the
+   attribution report of the route, mcf and verify families (the kernel
+   rate 65,536 over phase 4's K1 + K2 + K3 ms) and the card's memory;
+   (9.2) with an incident recorder and a health engine on an injected
+   clock: dispatch:route:raise:1.0 for seven flushes (five "error", the
+   breaker opens, two "breaker" refused with BreakerOpen and no launch),
+   the engine ticked past the breaker_open SLO's 5 s (in breach, not
+   healthy), then disarmed, after the backoff a half-open probe and one
+   more flush "ok" and exact, and a hang with a 0.05 s deadline on a
+   fresh service ("deadline", its queries failing); no host dijkstra but
+   the exactness rows; (9.3) exactly one incident bundle, breaker_open,
+   the deadline and SLO breach absorbed, its seven artifacts, a
+   trace.json that validates with route/flush and mcf/flush spans and
+   their flight events; the engine healthy again; every MCF journey
+   enqueue -> mcf_flush -> parts.
 
 Prints one {"kernels": [...]} line (each verify kernel's launches counted
 on the replay of the first engine that runs it, named as "path"; S1's and
 S2's on phase 5's sign path; each kernel's launches in phase 6's waves
 as "live_ingest_launches"; R1's and R2's on phase 7's routing path; each
 kernel's launches in phase 8's six replays as
-"supervised_replay_launches"; the fault replay's and the supervised
+"supervised_replay_launches"; R1's and R2's in phase 9 as
+"supervised_routing_launches"; the fault replay's and the supervised
 sign and check's only in the log), the
 nvidia-smi name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Exits non-zero with
@@ -133,6 +158,8 @@ no result line when there is no CUDA device or no port package beside it.
 from __future__ import annotations
 
 import argparse
+import asyncio
+import hashlib
 import json
 import os
 import subprocess
@@ -169,7 +196,7 @@ ROUTING_REPLACES = {
 }
 # the wrapper of each kernel, where its name is not the kernel's
 WRAPPER = {"verify_prep": "verify_prep_core",
-           "fixed_base": "fixed_base_affine"}
+           "fixed_base": "fixed_base_affine", "mcf_ssp": "mcf_solve"}
 MAX_HTLCS = 483         # BOLT #2 max_accepted_htlcs
 
 # The kernels (by wrapper) each kernel engine launches once a bucket; the
@@ -1271,8 +1298,6 @@ def route_parity(RD, DJ, g, queries, results):
 def serve(svc, calls):
     """Start `svc`, await every call concurrently, close it; returns
     (answers or exceptions, seconds)."""
-    import asyncio
-
     async def go():
         svc.start()
         t0 = time.perf_counter()
@@ -1284,15 +1309,77 @@ def serve(svc, calls):
     return asyncio.run(go())
 
 
-def service_line(tag, svc, n, dt):
-    st = svc.stats
-    fl = [s * 1e3 for s in st.flush_s]
+async def _waves(svc, waves, before=None):
+    """Each wave's calls concurrently, one wave after the other (a wave
+    of a batch's queries is one flush); ``before(i)`` runs ahead of wave
+    i.  Returns each wave's answers or exceptions."""
+    svc.start()
+    out = []
+    try:
+        for i, wave in enumerate(waves):
+            if before is not None:
+                before(i)
+            out.append(await asyncio.gather(*(c(svc) for c in wave),
+                                            return_exceptions=True))
+    finally:
+        await svc.close()
+    return out
+
+
+def by_label(s1, s0, name):
+    """{label values joined by "/": increase} of a counter between two
+    obs snapshots, zero entries left out."""
+    def vals(snap):
+        fam = snap["metrics"].get(name, {"samples": []})
+        return {"/".join(x["labels"].values()): x["value"]
+                for x in fam["samples"]}
+    a, b = vals(s0), vals(s1)
+    return {k: v - a.get(k, 0) for k, v in sorted(b.items())
+            if v != a.get(k, 0)}
+
+
+def serve_counted(svc, calls, wave=None):
+    """serve(), or with ``wave`` the calls in waves of that many (a wave
+    a flush), with what the service's family counted meanwhile: its
+    flight records, queries by (path, outcome), host answers by reason,
+    flush-loop restarts and every flight outcome."""
+    from lightning_tpu_torch import obs
+    from lightning_tpu_torch.obs import flight
+
+    fam = svc.FAMILY
+    base = max([r["dispatch_id"] for r in flight.recent(fam)] or [0])
+    s0 = obs.snapshot()
+    if wave is None:
+        answers, dt = serve(svc, calls)
+    else:
+        t0 = time.perf_counter()
+        got = asyncio.run(_waves(svc, [calls[i:i + wave] for i in range(
+            0, len(calls), wave)]))
+        dt = time.perf_counter() - t0
+        answers = [a for w in got for a in w]
+    s1 = obs.snapshot()
+    st = {"records": [r for r in flight.recent(fam)
+                      if r["dispatch_id"] > base],
+          "queries": by_label(s1, s0, f"clntpu_{fam}_queries_total"),
+          "host": by_label(s1, s0, f"clntpu_{fam}_fallback_total"),
+          "restarts": delta(s1, s0, "clntpu_loop_restarts_total",
+                            loop=f"{fam}_flush"),
+          "dispatches": by_label(s1, s0, "clntpu_dispatches_total"),
+          "s0": s0, "s1": s1}
+    return answers, dt, st
+
+
+def service_line(tag, st, n, dt):
+    recs = st["records"]
+    fl = [r["dispatch_ms"] for r in recs]
     log(f"{tag}: {n} concurrent queries in {dt:.3f} s ({n / dt:.1f} q/s), "
-        f"{st.flushes} flushes, flush p50 {pct(fl, 50):.2f} ms p99 "
-        f"{pct(fl, 99):.2f} ms, device occupancy {st.device_queries}/"
-        f"{st.device_lanes} lanes, queries by (path, outcome) "
-        f"{ {f'{p}/{o}': k for (p, o), k in sorted(st.queries.items())} }, "
-        f"host answers by reason {st.host}, restarts {st.restarts}")
+        f"{len(recs)} flushes, flush p50 {pct(fl, 50):.2f} ms p99 "
+        f"{pct(fl, 99):.2f} ms (flight records' dispatch_ms), device "
+        f"occupancy {sum(r['n_real'] for r in recs)}/"
+        f"{sum(r['lanes'] for r in recs)} lanes, outcomes "
+        f"{sorted({r['outcome'] for r in recs})}, queries by (path, "
+        f"outcome) {st['queries']}, host answers by reason {st['host']}, "
+        f"restarts {st['restarts']}")
 
 
 def same_route_answer(res, ans):
@@ -1357,7 +1444,7 @@ def routing(args, g, dev, card, torch):
     gen = np.random.default_rng(args.seed + 7)
     t_phase = t0 = time.perf_counter()
     planes = RoutePlanes.build(g, dev)
-    plane_args = RD._device_plane_args(planes)
+    plane_args, _ = RD._device_plane_args(planes)
     mp = MD.McfPlanes.build(g, dev)
     arcs = mp.device_arcs()
     torch.cuda.synchronize()
@@ -1468,16 +1555,17 @@ def routing(args, g, dev, card, torch):
     assert set(reasons) <= {RD.R_OVERFLOW, RD.R_RECONSTRUCT}, reasons
 
     svc = RD.RouteService(lambda: g, device=dev, high_wm=4 * len(queries))
-    answers, dt = serve(svc, [
+    answers, dt, st = serve_counted(svc, [
         (lambda q: lambda s: s.getroute(
             q.source, q.destination, q.amount_msat, q.final_cltv,
             q.riskfactor, q.max_hops, q.excluded_scids,
             with_source=True))(q) for q in rmix])
-    service_line("getroute RouteService", svc, len(rmix), dt)
+    service_line("getroute RouteService", st, len(rmix), dt)
     diff = sum(not same_route_answer(r, a) for r, a in zip(res, answers))
     log(f"RouteService against solve_batch: {diff} answers differ")
-    assert diff == 0 and svc.stats.restarts == 0
-    assert set(svc.stats.host) <= {RD.R_OVERFLOW, RD.R_RECONSTRUCT}
+    assert diff == 0 and st["restarts"] == 0
+    assert set(st["host"]) <= {RD.R_OVERFLOW, RD.R_RECONSTRUCT}
+    flush_ms = {"route": [r["dispatch_ms"] for r in st["records"]]}
 
     mq = mmix + [MD.McfQuery(
         mmix[0].source, mmix[0].destination, 2_000_000,
@@ -1506,18 +1594,19 @@ def routing(args, g, dev, card, torch):
         "a getroutes host answer outside the named reasons"
 
     msvc = MD.McfService(lambda: g, device=dev, high_wm=4 * len(mq))
-    manswers, dt = serve(msvc, [
+    manswers, dt, mst = serve_counted(msvc, [
         (lambda q: lambda s: s.getroutes(
             q.source, q.destination, q.amount_msat, layers=q.layers,
             max_parts=q.max_parts))(q) for q in mq + [layered]])
-    service_line("getroutes McfService", msvc, len(mq) + 1, dt)
+    service_line("getroutes McfService", mst, len(mq) + 1, dt)
+    flush_ms["mcf"] = [r["dispatch_ms"] for r in mst["records"]]
     mdiff = sum(not (r[1] == a if r[0] == "ok"
                      else isinstance(a, BaseException))
                 for r, a in zip(mres[:-1], manswers[:-1]))
     log(f"McfService against solve_mcf_batch: {mdiff} answers differ; the "
         f"layer-created channel's query answered by the host: "
-        f"{msvc.stats.host}")
-    assert mdiff == 0 and msvc.stats.host == {MD.R_LAYERED: 1}
+        f"{mst['host']}")
+    assert mdiff == 0 and mst["host"] == {MD.R_LAYERED: 1}
     assert not isinstance(manswers[-1], BaseException)
     counts = HR.launch_counts()
     torch.cuda.synchronize()
@@ -1597,7 +1686,6 @@ def routing(args, g, dev, card, torch):
     records = []
     mism = {"route_sweep": (sum(r1_bad), r1_err),
             "mcf_ssp": (sum(r2_bad), r2_err)}
-    wrapper = {"route_sweep": "route_sweep", "mcf_ssp": "mcf_solve"}
     cluster = {"route_sweep": HR.R1_CLUSTER, "mcf_ssp": HR.R2_CLUSTER}
     work_median = {
         "route_sweep": {"sweeps": float(np.median(w1[:, 0])),
@@ -1616,13 +1704,13 @@ def routing(args, g, dev, card, torch):
             "name": k, "route": "cuda",
             "source": f"lightning_tpu_torch/routing/csrc/{k}.cu",
             "replaces": ROUTING_REPLACES[k],
-            "launches": counts[wrapper[k]], "path": "routing",
+            "launches": counts[WRAPPER.get(k, k)], "path": "routing",
             "max_abs_err": mism[k][1], "mismatches": mism[k][0], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
             "library_ms": None, "cluster": cluster[k],
             "work": work_median[k], "cluster_ms": sizes[k]})
     log(f"phase 7 in {time.perf_counter() - t_phase:.1f} s")
-    return records
+    return records, flush_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1820,6 +1908,253 @@ def supervised_replay(args, path, expected, dev, card, torch, H, V, ST, E,
         f"{time.perf_counter() - t_phase:.1f} s")
     assert all(check_counts[k] > 0 for k in main + ("ecdsa_sign",)), \
         "a kernel of the sign or check was not launched"
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: supervised routing and the observability spine
+
+
+def route_calls(qs):
+    return [(lambda q: lambda s: s.getroute(
+        q.source, q.destination, q.amount_msat, q.final_cltv, q.riskfactor,
+        q.max_hops, q.excluded_scids, with_source=True))(q) for q in qs]
+
+
+def supervised_routing(args, g, dev, card, torch, kernel_rate, flush_ms7):
+    """Phase 9: RouteService and McfService supervised on the card (the
+    route mix and the mcf mix over phase 7's graph), under faults, with
+    an incident recorder, a health engine on an injected clock and every
+    journey sampled.  Returns R1's and R2's launches in the phase."""
+    import contextlib
+    import shutil
+
+    from lightning_tpu_torch import obs
+    from lightning_tpu_torch.obs import attribution, flight, health
+    from lightning_tpu_torch.obs import incident, journey, traceexport
+    from lightning_tpu_torch.resilience import breaker as BR
+    from lightning_tpu_torch.resilience import deadline as DL
+    from lightning_tpu_torch.resilience import faultinject as FI
+    from lightning_tpu_torch.routing import device as RD
+    from lightning_tpu_torch.routing import hopper_route as HR
+    from lightning_tpu_torch.routing import mcf_device as MD
+    from lightning_tpu_torch.routing.planes import RoutePlanes
+
+    t_phase = time.perf_counter()
+    B, Bm = RD.ROUTE_BATCH, MD.MCF_BATCH
+    rmix = route_mix(RD, g, 11, 1024)
+    mmix = mcf_mix(MD, g, 13, 64)
+    keys = [hashlib.sha256(b"phase9-%d" % i).digest()
+            for i in range(len(mmix))]
+    journey.configure(sample=1, max_entities=4096)
+    # the answers to hold the services to: solve_batch and
+    # solve_mcf_batch on phase 7's graph as it stands (after its
+    # channel_updates), launched before the counts are set to 0
+    want_r = RD.solve_batch(RoutePlanes.build(g, dev), rmix, batch=B)
+    want_m = MD.solve_mcf_batch(MD.McfPlanes.build(g, dev), mmix)
+
+    # 9.1: clean, a batch's queries a wave (a flush each), counts set to
+    # 0 just before and read just after
+    torch.cuda.synchronize()
+    HR.reset_launches()
+    svc = RD.RouteService(lambda: g, device=dev, high_wm=4 * len(rmix))
+    answers, dt, st = serve_counted(svc, route_calls(rmix), wave=B)
+    service_line("phase 9 getroute RouteService", st, len(rmix), dt)
+    msvc = MD.McfService(lambda: g, device=dev, high_wm=4 * len(mmix))
+    manswers, mdt, mst = serve_counted(msvc, [
+        (lambda q, k: lambda s: s.getroutes(
+            q.source, q.destination, q.amount_msat, max_parts=q.max_parts,
+            journey_key=k))(q, k) for q, k in zip(mmix, keys)], wave=Bm)
+    service_line("phase 9 getroutes McfService", mst, len(mmix), mdt)
+    torch.cuda.synchronize()
+    c91 = HR.launch_counts()
+    s0, s1 = st["s0"], mst["s1"]
+    recs, mrecs = st["records"], mst["records"]
+    diff = sum(not same_route_answer(r, a) for r, a in zip(want_r, answers))
+    mdiff = sum(not (r[1] == a if r[0] == "ok"
+                     else isinstance(a, BaseException))
+                for r, a in zip(want_m, manswers))
+    host = by_label(s1, s0, "clntpu_route_fallback_total")
+    n_dev = sum(r["n_real"] for r in recs)
+    dq = sum(v for k, v in by_label(s1, s0, "clntpu_route_queries_total")
+             .items() if k.startswith("device/"))
+    disp = {k: v for k, v in by_label(s1, s0, "clntpu_dispatches_total")
+            .items() if k.split("/")[0] in ("route", "mcf")}
+    io = {f"{f}/{d}": sum(r[f"{d}_bytes"] for r in rs)
+          for f, rs in (("route", recs), ("mcf", mrecs))
+          for d in ("h2d", "d2h")}
+    io_counted = by_label(s1, s0, "clntpu_transfer_bytes_total")
+    log(f"9.1 clean: answers differing from solve_batch {diff}, from "
+        f"solve_mcf_batch {mdiff}; flight records route {len(recs)} mcf "
+        f"{len(mrecs)}, clntpu_dispatches_total deltas {disp}; route "
+        f"queries to the card {n_dev}, counted path=device {dq}, host "
+        f"answers {host}; launches {json.dumps(c91)} against batches "
+        f"route {sum(r['lanes'] // B for r in recs)} mcf "
+        f"{sum(r['lanes'] // Bm for r in mrecs)}; staged bytes on the "
+        f"records {io}, counted {io_counted}")
+    assert diff == 0 and mdiff == 0, "a supervised answer differs"
+    assert {r["outcome"] for r in recs + mrecs} == {"ok"}
+    assert disp == {"mcf/ok": len(mrecs), "route/ok": len(recs)}
+    assert set(host) <= {RD.R_OVERFLOW, RD.R_RECONSTRUCT}
+    assert dq == n_dev - sum(host.values()) and n_dev == len(rmix)
+    assert c91["route_sweep"] == sum(r["lanes"] // B for r in recs)
+    assert c91["mcf_solve"] == sum(r["lanes"] // Bm for r in mrecs)
+    assert io == io_counted, "staged bytes off the counters"
+    report = attribution.report_local(kernel_rate=kernel_rate,
+                                      families=["route", "mcf", "verify"])
+    for fam, sec in report["families"].items():
+        log(f"attribution {fam} (the flight ring's records since phase 8 "
+            f"reset it): {sec['dispatches']} dispatches, {sec['pipeline']}, "
+            f"stages "
+            f"{json.dumps(sec['stages'])}, critical path "
+            f"{sec['critical_path_s']} s, wall span {sec['wall_span_s']} s, "
+            f"idle {sec['idle_s']} s, bottleneck {sec['bottleneck']}, "
+            f"throughput {sec['throughput_per_s']}/s, roofline "
+            f"{json.dumps(sec.get('roofline'))}")
+    log(f"attribution kernel_rate {kernel_rate:.1f} items/s (65,536 over "
+        f"phase 4's K1 + K2 + K3 ms on {card}); device memory "
+        f"{json.dumps(attribution.sample_device_memory())}")
+    fl9 = {"route": [r["dispatch_ms"] for r in recs],
+           "mcf": [r["dispatch_ms"] for r in mrecs]}
+    for fam in ("route", "mcf"):
+        log(f"flush {fam}: phase 9 p50 {pct(fl9[fam], 50):.2f} ms p99 "
+            f"{pct(fl9[fam], 99):.2f} ms ({len(fl9[fam])} flushes); "
+            f"phase 7 p50 {pct(flush_ms7[fam], 50):.2f} ms p99 "
+            f"{pct(flush_ms7[fam], 99):.2f} ms ({len(flush_ms7[fam])})")
+
+    # 9.2: faults, with the incident recorder and the health engine on
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_incidents_")
+    rec = incident.install(tmpdir)
+    rec.start()
+    clock = {"t": 0.0}
+    eng = health.install(health.HealthEngine(
+        interval_s=1.0, short_ticks=2, long_ticks=4, recover_ticks=2,
+        now=lambda: clock["t"]))
+    eng.tick()
+    brk = BR.get("route")
+    real_getroute = RD.DJ.getroute
+    host_calls = []
+
+    def counted_getroute(*a, **kw):
+        host_calls.append(1)
+        return real_getroute(*a, **kw)
+
+    armed = contextlib.ExitStack()
+    seen = {}
+
+    def before(i):
+        if i == 0:
+            armed.enter_context(FI.arm("dispatch:route:raise:1.0"))
+        if i == 7:
+            armed.close()
+            seen["launches_before_probe"] = HR.launch_counts()["route_sweep"]
+            seen["state"] = brk.state
+            for _ in range(2):
+                clock["t"] += 1.0
+                eng.tick()
+            clock["t"] += 6.0
+            eng.tick()
+            seen["health"] = eng.report()
+            time.sleep(brk.retry_in_s() + 0.05)
+
+    HR.reset_launches()
+    RD.DJ.getroute = counted_getroute
+    try:
+        s0 = obs.snapshot()
+        base = max([r["dispatch_id"] for r in flight.recent("route")]
+                   or [0])
+        waves = [route_calls(rmix[i * B:(i + 1) * B]) for i in range(9)]
+        svc = RD.RouteService(lambda: g, device=dev, high_wm=4 * len(rmix))
+        got = asyncio.run(_waves(svc, waves, before))
+        torch.cuda.synchronize()
+        c92 = HR.launch_counts()
+        # a hung dispatch on a fresh service with a deadline
+        dsvc = RD.RouteService(lambda: g, device=dev, deadline_s=0.05)
+        with FI.arm("dispatch:route:hang:1:0.3"):
+            dgot = asyncio.run(_waves(dsvc, [route_calls(rmix[:B])]))[0]
+        time.sleep(0.5)        # the hung dispatch's worker finishes
+        torch.cuda.synchronize()
+        s1 = obs.snapshot()
+    finally:
+        RD.DJ.getroute = real_getroute
+        armed.close()
+    frecs = [r for r in flight.recent("route") if r["dispatch_id"] > base]
+    outcomes = [r["outcome"] for r in frecs]
+    hrep = seen["health"]
+    host = by_label(s1, s0, "clntpu_route_fallback_total")
+    kinds = [sorted({type(a).__name__ for a in w}) for w in got]
+    log(f"9.2 faults: outcomes {outcomes}, answer types a wave {kinds}, "
+        f"deadline wave {sorted({type(a).__name__ for a in dgot})}; "
+        f"breaker {seen['state']} before the probe, R1 launches "
+        f"{seen['launches_before_probe']} before it and "
+        f"{c92['route_sweep']} after the recovery waves; transitions "
+        f"{by_label(s1, s0, 'clntpu_breaker_transitions_total')}; "
+        f"host answers {host} ({len(host_calls)} dijkstra calls); health "
+        f"at +6 s {hrep['state']}, breached {hrep['breached']}")
+    assert outcomes == ["error"] * 5 + ["breaker"] * 2 + ["ok"] * 2 + [
+        "deadline"], outcomes
+    assert all(isinstance(a, FI.FaultInjected) for w in got[:5] for a in w)
+    assert all(isinstance(a, BR.BreakerOpen) and a.retry_in_s > 0
+               for w in got[5:7] for a in w)
+    assert all(isinstance(a, DL.DeadlineExceeded) for a in dgot)
+    assert seen["state"] == "open" and seen["launches_before_probe"] == 0
+    assert c92["route_sweep"] == 2 and brk.state == "closed"
+    assert all(same_route_answer(want_r[i * B + j], a)
+               for i in (7, 8) for j, a in enumerate(got[i]))
+    assert set(host) <= {RD.R_OVERFLOW, RD.R_RECONSTRUCT}
+    assert len(host_calls) == sum(host.values())
+    assert "breaker_open" in hrep["breached"] and hrep["state"] != "healthy"
+    assert by_label(s1, s0, "clntpu_breaker_transitions_total") == {
+        "route/closed": 1, "route/half_open": 1, "route/open": 1}
+
+    # 9.3: the spine on the card
+    ticks = 0
+    while eng.state_name() != "healthy" and ticks < 30:
+        clock["t"] += 1.0
+        eng.tick()
+        ticks += 1
+    final = eng.report()
+    assert rec.drain(30.0)
+    rec.stop()
+    summ = rec.summary()
+    bundles = summ["incidents"]
+    man = rec.get(bundles[0]["id"])["manifest"] if bundles else {}
+    tr = rec.get(bundles[0]["id"], "trace.json")["artifact"]["content"] \
+        if bundles else {}
+    problems = traceexport.validate(tr)
+    names = {e["name"] for e in tr.get("traceEvents", ())
+             if e.get("ph") == "X"}
+    jsum = journey.summary()
+    paths = {tuple(h["hop"] for h in journey.lookup("payment", k)["hops"])
+             for k in keys}
+    log(f"9.3 spine: {len(bundles)} incident bundle(s) "
+        f"{[b['trigger'] for b in bundles]}, history "
+        f"{[(h['class'], h['action']) for h in man.get('history', ())]}, "
+        f"absorbed {man.get('suppressed')}, artifacts "
+        f"{sorted(man.get('artifacts', {}))}, capture errors "
+        f"{man.get('capture_errors')}, correlation "
+        f"{man.get('correlation')}, {summ['total_bytes']} bytes; "
+        f"trace.json {len(tr.get('traceEvents', ()))} events, "
+        f"{len(problems)} problems; health after {ticks} more ticks "
+        f"{final['state']} (breached {final['breached']}); journeys "
+        f"{jsum['entities']} entities, hops {sorted(jsum['by_hop'])}, MCF "
+        f"journeys' hop sequences {sorted(paths)}")
+    assert len(bundles) == 1 and bundles[0]["trigger"] == "breaker_open"
+    assert man["correlation"]["family"] == "route"
+    assert {"deadline", "slo_breach"} <= set(man["suppressed"])
+    assert sorted(man["artifacts"]) == sorted(incident.ARTIFACTS)
+    assert man["capture_errors"] == {} and man["trace_problems"] == 0
+    assert problems == [] and {"route/flush", "mcf/flush", "dispatch/route",
+                               "dispatch/mcf"} <= names
+    assert final["state"] == "healthy"
+    assert paths == {("enqueue", "mcf_flush", "parts")}
+    health.install(None)
+    incident.install(None)
+    journey.configure()
+    shutil.rmtree(tmpdir, ignore_errors=True)
+    counts = {k: c91[k] + c92[k] for k in c91}
+    log(f"supervised routing launches in phase 9: {json.dumps(counts)}; "
+        f"phase 9 in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2246,7 +2581,8 @@ def main(argv=None) -> int:
             WRAPPER.get(rec["name"], rec["name"]), 0)
 
     # -- phase 7: routing on the card over phase 3's graph
-    kernels += routing(args, route_graph, dev, card, torch)
+    records, flush_ms = routing(args, route_graph, dev, card, torch)
+    kernels += records
 
     # -- phase 8: the supervised, pipelined replay of phase 3's store;
     # each kernel's launches in its six replays
@@ -2255,6 +2591,16 @@ def main(argv=None) -> int:
     tmp.cleanup()
     for rec in kernels:
         rec["supervised_replay_launches"] = counts.get(
+            WRAPPER.get(rec["name"], rec["name"]), 0)
+
+    # -- phase 9: supervised routing and the observability spine over
+    # phase 7's graph; R1's and R2's launches in it
+    k_ms = sum(r["ms"] for r in kernels
+               if r["name"] in ("verify_prep", "build_tables", "glv_scan"))
+    counts = supervised_routing(args, route_graph, dev, card, torch,
+                                Bk / (k_ms / 1e3), flush_ms)
+    for rec in kernels:
+        rec["supervised_routing_launches"] = counts.get(
             WRAPPER.get(rec["name"], rec["name"]), 0)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -27,9 +27,12 @@ import logging
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from .. import device as D
 from .. import obs
 from ..obs import families as _families
+from ..obs import journey as _journey
 from ..resilience import deadline as _deadline
 from ..resilience import overload as _overload
 from ..utils import events, trace
@@ -92,6 +95,17 @@ class _QItem:
     # the carrier minted at submit (trace.new_corr): links the message's
     # submit span to the flush and dispatch spans that verify it
     corr: object = None
+    # enqueue time (self.now() at admission): the journey verify hop's
+    # queue-wait anchor
+    t_enq: float = 0.0
+
+
+def _journey_entity(kind: int, parsed) -> tuple[str, object]:
+    """The journey entity a gossip message narrates: channel messages
+    key on their scid, node announcements on the node id."""
+    if kind == wire.MSG_NODE_ANNOUNCEMENT:
+        return "node", parsed.node_id
+    return "channel", int(parsed.short_channel_id)
 
 
 def _shed_key(kind: int, parsed) -> dict:
@@ -226,14 +240,23 @@ class GossipIngest:
         if not self.overload.admit(prio, n_sigs):
             self.stats.drop(R_SHED)
             self.overload.shed(prio, "queue_full", **_shed_key(kind, parsed))
+            jk, jkey = _journey_entity(kind, parsed)
+            _journey.hop("shed", jk, jkey, outcome=R_SHED,
+                         reason="queue_full")
             return
         if kind == wire.MSG_CHANNEL_UPDATE and not self._ratelimit_ok(
                 (parsed.short_channel_id, parsed.direction)):
             self.stats.drop(R_RATELIMIT)
+            jk, jkey = _journey_entity(kind, parsed)
+            _journey.hop("drop", jk, jkey, outcome=R_RATELIMIT)
             return
-        self._queue.append(_QItem(kind, parsed, raw, source, n_sigs,
-                                  corr=trace.new_corr()))
+        it = _QItem(kind, parsed, raw, source, n_sigs,
+                    corr=trace.new_corr(), t_enq=self.now())
+        self._queue.append(it)
         self._queued_sigs += n_sigs
+        jk, jkey = _journey_entity(kind, parsed)
+        _journey.hop("admit", jk, jkey, outcome="ok",
+                     corr_id=it.corr.corr_id, queued_sigs=self._queued_sigs)
         self._note_backlog()
         if self._flush_due is None:
             # the latency budget stretches as pressure rises
@@ -279,11 +302,15 @@ class GossipIngest:
         if kind == wire.MSG_CHANNEL_ANNOUNCEMENT:
             if parsed.short_channel_id in self.channels:
                 self.stats.drop(R_DUP)
+                _journey.hop("drop", "channel",
+                             parsed.short_channel_id, outcome=R_DUP)
                 return False
         elif kind == wire.MSG_CHANNEL_UPDATE:
             key = (parsed.short_channel_id, parsed.direction)
             if self.updates.get(key, -1) >= parsed.timestamp:
                 self.stats.drop(R_STALE)
+                _journey.hop("drop", "channel",
+                             parsed.short_channel_id, outcome=R_STALE)
                 return False
             if parsed.short_channel_id not in self.channels:
                 # the signer is node[direction] of a channel we don't
@@ -298,6 +325,9 @@ class GossipIngest:
                         self.overload.shed(self._priority(kind, parsed),
                                            "pending_cap",
                                            **_shed_key(kind, parsed))
+                        _journey.hop("shed", "channel",
+                                     parsed.short_channel_id,
+                                     outcome=R_SHED, reason="pending_cap")
                         return False
                     self.pending_updates.setdefault(
                         parsed.short_channel_id, {})[parsed.direction] = \
@@ -311,6 +341,8 @@ class GossipIngest:
         elif kind == wire.MSG_NODE_ANNOUNCEMENT:
             if self.nodes.get(parsed.node_id, -1) >= parsed.timestamp:
                 self.stats.drop(R_STALE)
+                _journey.hop("drop", "node", parsed.node_id,
+                             outcome=R_STALE)
                 return False
         else:
             self.stats.drop(R_MALFORMED)
@@ -422,30 +454,73 @@ class GossipIngest:
         self.stats.batched_sigs += len(items)
         self.stats.max_batch = max(self.stats.max_batch, len(items))
         _M_FLUSH_SIGS.observe(len(items))
+        # per-item provenance: with journeys on, dispatch_map receives,
+        # a signature, the dispatch_id of the flight record whose bucket
+        # verified it, and the batch-side queue wait sums (flush start -
+        # enqueue) over EVERY queued item
+        jw = _journey.enabled()
+        dmap = np.full(len(items), -1, np.int64) if jw else None
+        t_flush0 = self.now()
+        if jw:
+            _journey.note_batch_wait(
+                "verify", sum(max(0.0, t_flush0 - it.t_enq)
+                              for it in batch if it.t_enq))
+        t_verify0 = time.perf_counter()
         # the deadline bounds only the (pure) verify dispatch, so a blown
         # deadline cannot split the apply and the store append below; the
         # carriers cross the worker-thread hop explicitly
         with trace.span("gossip/flush", corr=corrs, sigs=len(items)):
             ok = await _deadline.guard(
                 asyncio.to_thread(gverify.verify_items, items, self.bucket,
-                                  device=self.device, corr=corrs),
+                                  device=self.device, corr=corrs,
+                                  dispatch_map=dmap),
                 self.deadline_s, "ingest", "flush")
-        self._accepted = []
+        verify_dt = time.perf_counter() - t_verify0
+        # per-signature verdicts to per-message (4 for an announcement)
+        sig_ok: list[bool] = []
+        first_sig: list[int] = []
         pos = 0
         for it in batch:
-            good = bool(ok[pos:pos + it.n_sigs].all())
+            sig_ok.append(bool(ok[pos:pos + it.n_sigs].all()))
+            first_sig.append(pos)
             pos += it.n_sigs
+        if jw:
+            for it, good, fs in zip(batch, sig_ok, first_sig):
+                jk, jkey = _journey_entity(it.kind, it.parsed)
+                did = int(dmap[fs]) if fs < len(dmap) and dmap[fs] >= 0 \
+                    else None
+                _journey.hop(
+                    "verify", jk, jkey, outcome="ok" if good else R_BADSIG,
+                    wait_s=max(0.0, t_flush0 - it.t_enq) if it.t_enq
+                    else 0.0,
+                    service_s=verify_dt, dispatch_id=did,
+                    corr_id=it.corr.corr_id if it.corr is not None
+                    else None)
+        self._accepted = []
+        for it, good in zip(batch, sig_ok):
             if not good:
                 self.stats.drop(R_BADSIG)
+                if jw:
+                    jk, jkey = _journey_entity(it.kind, it.parsed)
+                    _journey.hop("drop", jk, jkey, outcome=R_BADSIG)
                 continue
             await self._apply(it)
         if self._accepted:
             # write-ahead: ONE append_many and fsync for the whole batch,
             # then stream: nothing reaches peers before it is durable
+            t_store0 = time.perf_counter()
             self.writer.append_many(
                 [it.raw for it in self._accepted],
                 [getattr(it.parsed, "timestamp", 0)
                  for it in self._accepted], sync=True)
+            store_dt = time.perf_counter() - t_store0
+            if jw:
+                for it in self._accepted:
+                    jk, jkey = _journey_entity(it.kind, it.parsed)
+                    _journey.hop(
+                        "store", jk, jkey, outcome="ok", service_s=store_dt,
+                        corr_id=it.corr.corr_id if it.corr is not None
+                        else None)
             self.stats.accepted += len(self._accepted)
             _M_ACCEPTED.inc(len(self._accepted))
             if self.on_accept is not None:
@@ -461,11 +536,14 @@ class GossipIngest:
             scid = p.short_channel_id
             if scid in self.channels:       # raced within one batch
                 self.stats.drop(R_DUP)
+                _journey.hop("drop", "channel", scid, outcome=R_DUP)
                 return
             if self.utxo_check is not None:
                 sat = await self.utxo_check(scid)
                 if sat is None:
                     self.stats.drop(R_NO_UTXO)
+                    _journey.hop("drop", "channel", scid,
+                                 outcome=R_NO_UTXO)
                     return
             self.channels[scid] = (p.node_id_1, p.node_id_2)
             self._channeled_nodes.update((p.node_id_1, p.node_id_2))
@@ -484,6 +562,7 @@ class GossipIngest:
             scid, d = p.short_channel_id, p.direction
             if self.updates.get((scid, d), -1) >= p.timestamp:
                 self.stats.drop(R_STALE)   # raced within one batch
+                _journey.hop("drop", "channel", scid, outcome=R_STALE)
                 return
             self.updates[(scid, d)] = p.timestamp
             self._accepted.append(it)
@@ -509,6 +588,7 @@ class GossipIngest:
                 return
             if self.nodes.get(nid, -1) >= p.timestamp:
                 self.stats.drop(R_STALE)
+                _journey.hop("drop", "node", nid, outcome=R_STALE)
                 return
             self.nodes[nid] = p.timestamp
             self._accepted.append(it)

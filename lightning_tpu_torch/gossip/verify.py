@@ -575,7 +575,8 @@ def _to_host(oks: list) -> list:
 
 def _run_pipeline(items: VerifyItems, roi: np.ndarray, bucket: int,
                   depth: int, device_fn, device: torch.device,
-                  quarantined: list, corrs=()):
+                  quarantined: list, corrs=(),
+                  dispatch_map: np.ndarray | None = None):
     """Sort signatures by row, cut self-contained buckets, and stream
     them: a producer thread preps bucket i+1 while bucket i is dispatched
     to the card.  ``depth`` bounds the prepared-bucket queue; depth 0 is
@@ -611,6 +612,8 @@ def _run_pipeline(items: VerifyItems, roi: np.ndarray, bucket: int,
         ok = dispatch(b, queue_wait=wait)
         t_dispatch += time.perf_counter() - t0
         staged_bytes += b.staged_bytes
+        if dispatch_map is not None:
+            dispatch_map[b.sel] = flight_recs[-1]["dispatch_id"]
         pending.append((b.sel, ok))
 
     try:
@@ -724,7 +727,8 @@ def _run_pipeline(items: VerifyItems, roi: np.ndarray, bucket: int,
 def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
                  device=None, stats: dict | None = None,
                  engine: str = E.DEFAULT_ENGINE, *, depth: int = 2,
-                 device_fn=None, corr=None) -> np.ndarray:
+                 device_fn=None, corr=None,
+                 dispatch_map: np.ndarray | None = None) -> np.ndarray:
     """Verify every signature of `items` on `device` (the card unless
     device="cpu") under the verify engine `engine`.  Returns bool (N,).
 
@@ -747,7 +751,9 @@ def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
     bucket and returns its (n,) bool verdict tensor.  `stats`, if given,
     receives the bucket count and the stage seconds; ``corr`` (a
     trace.Carrier or a list of them) rides every span and flight record
-    of the replay.  Inference mode is thread-local, so it is set here:
+    of the replay.  ``dispatch_map`` (int64 (N,), caller-allocated), if
+    given, receives each signature's flight-record dispatch_id.
+    Inference mode is thread-local, so it is set here:
     the live ingest calls this on a worker thread."""
     dev = D.resolve(device)
     N = len(items)
@@ -765,7 +771,8 @@ def verify_items(items: VerifyItems, bucket: int = DEFAULT_BUCKET,
             return verify_bucket(b, dev, engine)
     quarantined: list[int] = []
     out, n_buckets, stages = _run_pipeline(
-        items, roi, bucket, depth, device_fn, dev, quarantined, corrs=corrs)
+        items, roi, bucket, depth, device_fn, dev, quarantined, corrs=corrs,
+        dispatch_map=dispatch_map)
     if stats is not None:
         stats["buckets"] = n_buckets
         stats.update(stages)

@@ -5,8 +5,7 @@ The same names, help texts, labels and buckets as the JAX package's
 live here, in a module that imports nothing heavy, so the series are
 present at zero before their owner modules are imported; the registry
 returns the same object for a same-name family, so owner modules import
-these instruments rather than re-declaring them.  The route and MCF
-families come with the routing slice's supervision.
+these instruments rather than re-declaring them.
 """
 from __future__ import annotations
 
@@ -17,6 +16,68 @@ from . import REGISTRY
 
 RATIO_BUCKETS = _r.RATIO_BUCKETS
 DURATION_BUCKETS = _r.DURATION_BUCKETS
+
+# -- routing/device.py: the supervised route flushes ---------------------
+ROUTE_FLUSH_SECONDS = REGISTRY.histogram(
+    "clntpu_route_flush_seconds",
+    "End-to-end wall time of one route flush (plane refresh + solve + "
+    "reconstruct, device and host paths together)",
+    buckets=DURATION_BUCKETS)
+ROUTE_BATCH_QUERIES = REGISTRY.histogram(
+    "clntpu_route_batch_queries",
+    "Route queries coalesced per flush", buckets=SIZE_BUCKETS)
+ROUTE_OCCUPANCY = REGISTRY.histogram(
+    "clntpu_route_batch_occupancy_ratio",
+    "Real queries / padded device lanes per dispatch",
+    buckets=RATIO_BUCKETS)
+ROUTE_QUERIES = REGISTRY.counter(
+    "clntpu_route_queries_total",
+    "Route queries solved, by execution path and outcome",
+    labelnames=("path", "outcome"))
+ROUTE_FALLBACK = REGISTRY.counter(
+    "clntpu_route_fallback_total",
+    "Queries diverted from the device solver to host dijkstra, by reason",
+    labelnames=("reason",))
+ROUTE_QUEUE = REGISTRY.gauge(
+    "clntpu_route_queue_queries",
+    "Route queries currently queued awaiting a flush")
+# observed by the getroute RPC command, which the port does not have yet:
+# declared so the series is present at zero, never observed
+ROUTE_ANSWER_SECONDS = REGISTRY.histogram(
+    "clntpu_route_answer_seconds",
+    "getroute RPC latency for answered queries (ok or no-route; "
+    "TRY_AGAIN rejections excluded)",
+    buckets=DURATION_BUCKETS)
+
+# -- routing/mcf_device.py: the supervised min-cost-flow flushes ---------
+MCF_FLUSH_SECONDS = REGISTRY.histogram(
+    "clntpu_mcf_flush_seconds",
+    "End-to-end wall time of one mcf flush (lane prep + batched solve + "
+    "flow decomposition, device and host paths together)",
+    buckets=DURATION_BUCKETS)
+MCF_BATCH_QUERIES = REGISTRY.histogram(
+    "clntpu_mcf_batch_queries",
+    "getroutes/xpay queries coalesced per mcf flush", buckets=SIZE_BUCKETS)
+MCF_OCCUPANCY = REGISTRY.histogram(
+    "clntpu_mcf_batch_occupancy_ratio",
+    "Real mcf queries / padded device lanes per dispatch",
+    buckets=RATIO_BUCKETS)
+MCF_QUERIES = REGISTRY.counter(
+    "clntpu_mcf_queries_total",
+    "Min-cost-flow queries solved, by execution path and outcome",
+    labelnames=("path", "outcome"))
+MCF_FALLBACK = REGISTRY.counter(
+    "clntpu_mcf_fallback_total",
+    "Queries diverted from the device mcf solver to the host oracle, "
+    "by reason",
+    labelnames=("reason",))
+MCF_QUEUE = REGISTRY.gauge(
+    "clntpu_mcf_queue_queries",
+    "Min-cost-flow queries currently queued awaiting a flush")
+MCF_PARTS = REGISTRY.histogram(
+    "clntpu_mcf_parts_per_query",
+    "Route parts per successfully solved mcf query (MPP split width)",
+    buckets=SIZE_BUCKETS)
 
 # -- daemon/hsmd.py: the batched sign and check ---------------------------
 SIGN_BATCH_SIGS = REGISTRY.histogram(
@@ -139,6 +200,50 @@ TRANSFER_BYTES = REGISTRY.counter(
     "direction (h2d = operand upload, d2h = result readback; "
     "operand-size accounting, not a PCIe counter)",
     labelnames=("family", "direction"))
+
+# -- obs/attribution.py: the retrace detector and device memory ----------
+RETRACE = REGISTRY.counter(
+    "clntpu_retrace_total",
+    "Program-shape compile first-sights AFTER warmup() completed — "
+    "every increment is an anomaly (a live dispatch paid a compile the "
+    "warmup contract promises it never does), by program",
+    labelnames=("program",))
+DEVICE_MEMORY = REGISTRY.gauge(
+    "clntpu_device_memory_bytes",
+    "Live device-memory statistics where the backend exposes "
+    "memory_stats() (TPU does; CPU reports nothing), by device and stat",
+    labelnames=("device", "stat"))
+
+# -- obs/health.py: the health engine -------------------------------------
+HEALTH_STATE = REGISTRY.gauge(
+    "clntpu_health_state",
+    "Rolled-up daemon health from the continuous SLO evaluator "
+    "(0 = healthy, 1 = degraded, 2 = unhealthy)")
+SLO_BREACH = REGISTRY.counter(
+    "clntpu_slo_breach_total",
+    "SLO breach ENTRIES recorded by the health engine (one increment "
+    "per transition into breach, not per breached tick), by SLO name",
+    labelnames=("slo",))
+
+# -- obs/incident.py: the incident recorder -------------------------------
+INCIDENTS = REGISTRY.counter(
+    "clntpu_incidents_total",
+    "Incident bundles frozen to disk by the black-box recorder, by the "
+    "trigger class that names the bundle (escalations re-count under "
+    "the new class)",
+    labelnames=("trigger",))
+INCIDENT_TRIGGERS = REGISTRY.counter(
+    "clntpu_incident_triggers_total",
+    "Incident triggers observed, by class and what the episode "
+    "debouncer did with them (capture = opened a bundle, escalate = "
+    "re-froze the open bundle under a higher-severity class, absorb = "
+    "suppressed inside the cooldown window)",
+    labelnames=("trigger", "action"))
+INCIDENT_BYTES = REGISTRY.gauge(
+    "clntpu_incident_store_bytes",
+    "Total bytes of incident bundles on disk (bounded by "
+    "LIGHTNING_TPU_INCIDENT_MAX_BYTES with oldest-first rotation)")
+
 # -- gossip/store.py: crash-consistent restart ----------------------------
 RECOVERY_STORE_ROWS = REGISTRY.counter(
     "clntpu_recovery_store_rows_total",
@@ -162,3 +267,32 @@ SLOW_DISPATCH = REGISTRY.counter(
     "Dispatches flagged by the slow-dispatch watchdog (over "
     "LIGHTNING_TPU_SLOW_DISPATCH_S, or the rolling per-family p99)",
     labelnames=("family",))
+
+# -- obs/journey.py: per-item journeys -----------------------------------
+JOURNEY_SAMPLED = REGISTRY.counter(
+    "clntpu_journey_sampled_total",
+    "Entities admitted to the journey table by the deterministic "
+    "sampler (one per entity, not per hop), by entity kind",
+    labelnames=("kind",))
+JOURNEY_TABLE = REGISTRY.gauge(
+    "clntpu_journey_table_size",
+    "Journeys currently held in the bounded per-entity table "
+    "(LRU-rotated at LIGHTNING_TPU_JOURNEY_MAX)")
+JOURNEY_HOP_WAIT = REGISTRY.histogram(
+    "clntpu_journey_hop_wait_seconds",
+    "Per-ITEM queue-induced wait at each journey hop (time the item "
+    "sat queued before its batch dispatched — the batching tax, split "
+    "from service time per doc/journeys.md)",
+    labelnames=("hop",), buckets=DURATION_BUCKETS)
+JOURNEY_HOP_SERVICE = REGISTRY.histogram(
+    "clntpu_journey_hop_service_seconds",
+    "Per-ITEM service time at each journey hop (the batch execution "
+    "the item shared, split from queue wait per doc/journeys.md)",
+    labelnames=("hop",), buckets=DURATION_BUCKETS)
+JOURNEY_BATCH_WAIT = REGISTRY.counter(
+    "clntpu_journey_batch_wait_seconds_total",
+    "Batch-side queue-wait accounting by pipeline stage: "
+    "Σ(flush_start − enqueue) over EVERY item of every batch, sampled "
+    "or not — the reconciliation target the summed per-item journey "
+    "waits must match within ε when sampling is 1",
+    labelnames=("stage",))

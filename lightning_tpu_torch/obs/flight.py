@@ -21,16 +21,17 @@ threshold set, the rolling per-family p99, is logged, counted
 launches are asynchronous, so on the card it is the enqueue time; the
 device time shows in the readback that waits for it.
 
-Outcome vocabulary (fixed, the JAX package's; the port re-checks
-nothing on the host, so it records only ok, bisect and error):
+Outcome vocabulary (fixed; the port re-checks nothing on the host after
+a failed dispatch, so of the JAX package's outcomes it records ok,
+host, bisect, deadline and error, and "breaker" where the JAX package
+records host_breaker):
 
     ok             device dispatch completed
-    host           the host path ran (a recovered sign/check failure)
-    host_breaker   breaker open -> host re-check
+    host           no device dispatch was needed (every row of the batch
+                   had a host answer), or a recovered sign/check failure
+    breaker        breaker open -> the device rows fail with BreakerOpen
     bisect         dispatch raised -> quarantine bisection completed it
-    readback_host  readback failed -> rows re-checked host-side
-    fused          mesh shard degraded to the single-device path
-    deadline       dispatch deadline blown -> host fallback
+    deadline       dispatch deadline blown -> the device rows fail
     error          dispatch failed with no recovery path
 """
 from __future__ import annotations
@@ -47,8 +48,7 @@ from . import families as _f
 
 log = logging.getLogger("lightning_tpu_torch.obs.flight")
 
-OUTCOMES = ("ok", "host", "host_breaker", "bisect", "readback_host",
-            "fused", "deadline", "error")
+OUTCOMES = ("ok", "host", "breaker", "bisect", "deadline", "error")
 
 # carriers stored per record are capped like span corr ids — a 10k-sig
 # ingest flush must not pin 10k ints per ring slot.  One constant for

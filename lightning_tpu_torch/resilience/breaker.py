@@ -8,7 +8,8 @@ doubled backoff.  Transitions are counted (``clntpu_breaker_*``) and
 emitted on the events bus (topic ``breaker_transition``).
 
 The "verify" breaker supervises the replay's bucket dispatches and
-hsmd's sig-checks, the "sign" breaker hsmd's batched sign.  An open
+hsmd's sig-checks, the "sign" breaker hsmd's batched sign, the "route"
+and "mcf" breakers the routing services' flushes.  An open
 breaker makes those dispatches raise ``BreakerOpen`` (or, where the
 caller opts in, re-check on the host).  The knobs are constructor
 arguments with the defaults threshold 5, backoff 1.0 s and ceiling

@@ -270,6 +270,16 @@ def recent_sheds(limit: int | None = None) -> list[dict]:
     return out
 
 
+def snapshot() -> dict:
+    """Every controller's state, and the recent sheds."""
+    return {
+        "families": {f: c.snapshot()
+                     for f, c in sorted(_controllers.items())},
+        "sheds_recorded": len(_shed_ring),
+        "recent_sheds": recent_sheds(64),
+    }
+
+
 def reset_for_tests() -> None:
     _controllers.clear()
     _shed_ring.clear()

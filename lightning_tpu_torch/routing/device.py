@@ -35,26 +35,50 @@ Host answers are part of the exactness contract and nothing else: a
 query the sweep cannot express (amount or riskfactor past its cap, a
 max_hops other than the sweep count) or whose answer could not be
 proven (overflow, reconstruction mismatch) is answered by dijkstra, and
-counted by reason in ``RouteService.stats``.  Every flush of the
-service goes to the card, however few queries it holds.  A dispatch that
-raises fails its flush's queries with the error; nothing is re-solved on
-the host for it.
+counted by reason in ``clntpu_route_fallback_total``.  Every flush of
+the service goes to the card, however few queries it holds.
+
+Supervision (``FlushService``, shared with mcf_device.McfService): each
+flush is one flight-recorded dispatch of its family, in a
+``<family>/flush`` span flow-linked to the queries' ``<family>/enqueue``
+spans.  The family's breaker is asked only when a dispatch will follow;
+the ``dispatch`` fault seam fires on the loop inside the deadline
+(``deadline_s``, off by default), so an injected hang blows it; the
+device share's lanes, occupancy and staged bytes go on the record, and
+the ``clntpu_<family>_*`` families count the flush.  No host answer
+follows a failed dispatch: an open breaker, a blown deadline or a
+dispatch error fails the flush's device queries with ``BreakerOpen``
+(with ``retry_in_s``), ``DeadlineExceeded`` or the error.  The
+record's outcome, against the JAX package's for the same flush:
+
+    JAX package                          port
+    ok                                   ok
+    host (after a device error)          error
+    host_breaker                         breaker
+    deadline                             deadline
+    host (a flush with no device share)  host
 """
 from __future__ import annotations
 
 import asyncio
-import collections
 import logging
 import time
-from dataclasses import dataclass, field
+import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import device as D
+from ..obs import attribution as _attr
+from ..obs import families as _families
+from ..obs import flight as _flight
+from ..obs import journey as _journey
+from ..resilience import breaker as _breaker
 from ..resilience import deadline as _deadline
+from ..resilience import faultinject as _fault
 from ..resilience import overload as _overload
-from ..utils import events
+from ..utils import events, trace
 from . import dijkstra as DJ
 from . import hopper_route as HR
 from .dijkstra import NoRoute, RouteHop
@@ -78,8 +102,6 @@ ROUTE_HIGH_WM = 256
 # guard itself: a huge rf would wrap cd * rf and disarm the guard, so
 # larger values go to the host's Python ints
 ROUTE_MAX_RISKFACTOR = 1_000_000
-# flush durations kept for the percentiles in stats
-_FLUSH_HISTORY = 4096
 
 # host-answer reasons
 R_AMOUNT_CAP = "amount_cap"
@@ -97,30 +119,35 @@ _PARAM_PLANES = ("edge_base", "edge_ppm", "edge_cltv", "edge_hmin",
 
 
 def _device_plane_args(planes: RoutePlanes) -> tuple:
-    """Upload (once per planes revision) and return the planes on
-    ``planes.device``, with R1's in-edge offsets beside them in
-    ``planes.dev["in_off"]``.  A param-refresh revision arrives with the
-    topology uploads carried over, so only the missing planes copy; an
-    incremental revision (``patch_idx`` set by with_patched_params)
-    scatters JUST the touched lanes.  The scatter is ``index_copy``,
-    out of place, as the JAX package's ``.at[].set``: the predecessor
-    revision's tensors stay as they were for a solve still reading
-    them."""
+    """Upload (once per planes revision) the planes to ``planes.device``
+    and return ``(operands, staged_bytes)``: the planes, and the host
+    bytes this call staged (0 when every plane was carried over).  R1's
+    in-edge offsets sit beside them in ``planes.dev["in_off"]``.  A
+    param-refresh revision arrives with the topology uploads carried
+    over, so only the missing planes copy; an incremental revision
+    (``patch_idx`` set by with_patched_params) scatters JUST the touched
+    lanes.  The scatter is ``index_copy``, out of place, as the JAX
+    package's ``.at[].set``: the predecessor revision's tensors stay as
+    they were for a solve still reading them."""
     dev = planes.device
+    staged = 0
     patch = planes.patch_idx
     if patch is not None and len(patch):
         idx = torch.as_tensor(patch, device=dev)
+        staged += idx.nbytes
         for name in _PARAM_PLANES:
             if name in planes.dev:
                 vals = torch.as_tensor(getattr(planes, name)[patch],
                                        device=dev)
+                staged += vals.nbytes
                 planes.dev[name] = planes.dev[name].index_copy(0, idx, vals)
     planes.patch_idx = None
     for name in (*_PLANE_ORDER, "in_off"):
         if name not in planes.dev:
-            planes.dev[name] = torch.as_tensor(getattr(planes, name),
-                                               device=dev)
-    return tuple(planes.dev[n] for n in _PLANE_ORDER)
+            host = getattr(planes, name)
+            planes.dev[name] = torch.as_tensor(host, device=dev)
+            staged += host.nbytes
+    return tuple(planes.dev[n] for n in _PLANE_ORDER), staged
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +168,8 @@ class RouteQuery:
     # (solve_batch always returns the payer-side (amount, delay) pair;
     # getroute's with_source only shapes ITS return value)
     future: object = None
+    # the correlation carrier minted in the route/enqueue span
+    corr: object = None
 
 
 def _reconstruct(planes: RoutePlanes, via: np.ndarray, src: int, dst: int,
@@ -198,7 +227,8 @@ def _reconstruct(planes: RoutePlanes, via: np.ndarray, src: int, dst: int,
 
 
 def solve_batch(planes: RoutePlanes, queries: list[RouteQuery],
-                batch: int = ROUTE_BATCH) -> list[tuple]:
+                batch: int = ROUTE_BATCH,
+                io_acct: dict | None = None) -> list[tuple]:
     """Solve every query in ceil(Q / batch) sweeps on ``planes.device``
     (R1 on the card, its plain version on the CPU).
 
@@ -207,6 +237,10 @@ def solve_batch(planes: RoutePlanes, queries: list[RouteQuery],
       ("noroute", message)                    provably unreachable
       ("fallback", reason)                    the host answers instead
       ("error", exc)                          the query's own error
+
+    The host<->device bytes this call staged are counted in
+    clntpu_transfer_bytes_total{family="route"} and, when ``io_acct`` is
+    given, added to its ``h2d_bytes`` / ``d2h_bytes``.
     """
     g = planes.g
     dev = planes.device
@@ -219,7 +253,11 @@ def solve_batch(planes: RoutePlanes, queries: list[RouteQuery],
             i = idx_cache[nid] = g.node_index(nid)
         return i
 
-    plane_args = _device_plane_args(planes)
+    plane_args, h2d = _device_plane_args(planes)
+    d2h = 0
+    # the sweep's shape key: node pad, edge pad, batch width, sweeps
+    _attr.note_program("route", (planes.n_pad, planes.e_pad, batch,
+                                 DEFAULT_MAX_HOPS))
     for start in range(0, len(queries), batch):
         chunk = queries[start:start + batch]
         ok_mat = np.zeros((batch, planes.e_pad), bool)
@@ -259,9 +297,11 @@ def solve_batch(planes: RoutePlanes, queries: list[RouteQuery],
             rf[i] = q.riskfactor
             ok_mat[i] = planes.edge_ok_mask(q.excluded_scids)
         lanes = (ok_mat, src, dst, amount, cltv, rf)
+        h2d += sum(a.nbytes for a in lanes)
         dist_src, via, ovf = (t.cpu().numpy() for t in HR.route_sweep(
             *plane_args, *(torch.as_tensor(a, device=dev) for a in lanes),
             planes.n_pad, DEFAULT_MAX_HOPS, in_off=planes.dev["in_off"]))
+        d2h += dist_src.nbytes + via.nbytes + ovf.nbytes
         for i, q in enumerate(chunk):
             if out[start + i] is not None:
                 continue       # resolved above
@@ -282,7 +322,14 @@ def solve_batch(planes: RoutePlanes, queries: list[RouteQuery],
                     log.warning("route reconstruction diverged (%s); "
                                 "the host answers", e)
                     out[start + i] = ("fallback", R_RECONSTRUCT)
+    _families.TRANSFER_BYTES.labels("route", "h2d").inc(h2d)
+    _families.TRANSFER_BYTES.labels("route", "d2h").inc(d2h)
+    if io_acct is not None:
+        io_acct["h2d_bytes"] = io_acct.get("h2d_bytes", 0) + h2d
+        io_acct["d2h_bytes"] = io_acct.get("d2h_bytes", 0) + d2h
     return out
+
+
 
 
 def _noroute_msg(q: RouteQuery) -> str:
@@ -307,54 +354,52 @@ def route_cost_msat(g, route: list[RouteHop], riskfactor: int) -> int:
 # ---------------------------------------------------------------------------
 # The micro-batching front-end
 
+# the routing services alive in this process (the incident recorder's
+# knob file lists their arguments)
+_LIVE: "weakref.WeakSet[FlushService]" = weakref.WeakSet()
 
-@dataclass
-class ServiceStats:
-    """What a routing service (RouteService, mcf_device.McfService) did:
-    queries by (path, outcome), host answers by reason, flushes and
-    their seconds, the device's lanes and the queries in them
-    (occupancy), and flush-loop restarts."""
 
-    queries: dict = field(default_factory=dict)
-    host: dict = field(default_factory=dict)
-    flushes: int = 0
-    flush_s: collections.deque = field(
-        default_factory=lambda: collections.deque(maxlen=_FLUSH_HISTORY))
-    device_queries: int = 0
-    device_lanes: int = 0
-    restarts: int = 0
-
-    def count(self, table: dict, key) -> None:
-        table[key] = table.get(key, 0) + 1
+def live_services() -> list:
+    return list(_LIVE)
 
 
 class FlushService:
     """The micro-batching flush loop the routing services share (the
     gossip ingest's shape): queries queue until the flush window closes
-    or a batch is full, then one ``_flush_batch`` answers them all.
+    or a batch is full, then one supervised flush answers them all.
 
-    A subclass names its ``FAMILY`` (the overload controller's name and
-    the ``<family>_flush_error`` events topic) and its defaults, and
-    implements ``_flush_batch``."""
+    A subclass names its ``FAMILY`` (the breaker, flight records, spans,
+    overload controller and ``<family>_flush_error`` events topic), its
+    defaults and instruments (``M``: the family's ``clntpu_<family>_*``
+    metrics), and implements ``_screen`` (which queries the host answers
+    by the exactness contract), ``_solve`` (the batched dispatch, on the
+    loop; it awaits ``_dispatch`` for each worker round) and
+    ``_host_solve`` / ``_resolve``.
+
+    ``deadline_s`` bounds each dispatch round (None: no bound)."""
 
     FAMILY = ""
     FLUSH_MS = 0.0
     BATCH = 0
     HIGH_WM = 0
+    M: dict = {}
+    # the journey stage whose batch wait the flush adds up (None: none)
+    JOURNEY_STAGE: str | None = None
 
     def __init__(self, get_map, *, flush_ms: float | None = None,
                  batch: int | None = None, device=None,
-                 now=time.monotonic, high_wm: int | None = None):
+                 now=time.monotonic, high_wm: int | None = None,
+                 deadline_s: float | None = None):
         self.get_map = get_map          # () -> Gossmap | None
         self.device = D.resolve(device)
         self.flush_ms = self.FLUSH_MS if flush_ms is None else flush_ms
         self.batch = batch or self.BATCH
+        self.deadline_s = deadline_s
         high = self.HIGH_WM if high_wm is None else high_wm
         self.overload = _overload.controller(
             self.FAMILY, high, high // 2, breaker_family=self.FAMILY,
             now=now)
         self.now = now
-        self.stats = ServiceStats()
         self._planes = None             # the planes of the last dispatch
         self._queue: list = []
         self._inflight = 0               # queries inside a running flush
@@ -362,6 +407,10 @@ class FlushService:
         self._wakeup = asyncio.Event()
         self._task: asyncio.Task | None = None
         self._closed = False
+        # (t_flush0, t_svc0, flight record) of the flush being resolved
+        # (flushes are serialized on the loop, so one slot suffices)
+        self._flush_ctx: tuple | None = None
+        _LIVE.add(self)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -406,15 +455,17 @@ class FlushService:
         return self.overload.flush_target(self.batch)
 
     def _note_backlog(self) -> None:
+        self.M["queue"].set(len(self._queue))
         self.overload.update(len(self._queue), self._inflight)
 
     # -- the flush loop ---------------------------------------------------
 
     async def _run(self) -> None:
         """Supervised flush loop: an exception escaping a flush (its
-        queries already failed with it) is emitted on the events bus
-        (topic ``<family>_flush_error``) and the loop restarts after a
-        capped exponential backoff, queued queries intact."""
+        queries already failed with it) is counted and emitted on the
+        events bus (topic ``<family>_flush_error``), and the loop
+        restarts after a capped exponential backoff, queued queries
+        intact."""
         topic = f"{self.FAMILY}_flush_error"
         try:
             backoff = _deadline.RestartBackoff()
@@ -424,7 +475,6 @@ class FlushService:
                 except asyncio.CancelledError:
                     raise
                 except Exception as e:
-                    self.stats.restarts += 1
                     delay = backoff.next()
                     _deadline.note_restart(f"{self.FAMILY}_flush", e, delay)
                     events.emit(topic, {"error": repr(e),
@@ -464,9 +514,11 @@ class FlushService:
             await self.flush()
 
     async def flush(self) -> None:
-        """Answer everything queued: one batched dispatch on the card,
-        the host answers on the loop.  A dispatch that raises fails this
-        flush's queries with its error and propagates."""
+        """Answer everything queued: one supervised, batched dispatch on
+        the card, the host answers of the exactness contract on the
+        loop.  A failed dispatch fails its device queries (see the
+        module docstring); an exception outside the dispatch fails the
+        flush's unanswered queries with it and propagates."""
         batch, self._queue = self._queue, []
         self._flush_due = None
         self._inflight = len(batch)
@@ -474,29 +526,146 @@ class FlushService:
         if not batch:
             self._inflight = 0
             return
-        self.stats.flushes += 1
         t0 = time.perf_counter()
         try:
             await self._flush_batch(batch)
         except Exception as e:
+            log.exception("%s flush failed", self.FAMILY)
             for q in batch:
                 if not q.future.done():
-                    self.stats.count(self.stats.queries, ("device", "error"))
+                    self.M["queries"].labels("host", "error").inc()
                     q.future.set_exception(e)
             raise
         finally:
             dt = time.perf_counter() - t0
-            self.stats.flush_s.append(dt)
+            self.M["flush_seconds"].observe(dt)
             self._inflight = 0
             self.overload.note_drain(len(batch), dt)
             self._note_backlog()
 
-    def _note_device(self, n: int) -> None:
-        """Occupancy: ``n`` queries went to the card in padded batches."""
-        self.stats.device_queries += n
-        self.stats.device_lanes += -(-n // self.batch) * self.batch
-
     async def _flush_batch(self, batch: list) -> None:
+        """One flight-recorded dispatch a flush: the record carries the
+        queries' corr ids and the flush's outcome, and the
+        ``<family>/flush`` span flow-links back to each enqueue span."""
+        corrs = trace.as_carriers(q.corr for q in batch)
+        brk = _breaker.get(self.FAMILY)
+        t_flush0 = self.now()
+        if self.JOURNEY_STAGE is not None and _journey.enabled():
+            # batch-side queue wait over EVERY query: what the sampled
+            # journeys' waits add up to
+            _journey.note_batch_wait(
+                self.JOURNEY_STAGE, sum(max(0.0, t_flush0 - q.t_enq)
+                                        for q in batch if q.t_enq))
+        t_svc0 = time.perf_counter()
+        with _flight.dispatch(
+                self.FAMILY, corr_ids=_flight.corr_ids(corrs),
+                n_real=len(batch), lanes=len(batch),
+                breaker_state=brk.state) as rec:
+            with trace.span(f"{self.FAMILY}/flush", corr=corrs,
+                            dispatch_id=rec["dispatch_id"],
+                            queries=len(batch)):
+                self._flush_ctx = (t_flush0, t_svc0, rec)
+                try:
+                    await self._flush_batch_inner(batch, brk, rec)
+                finally:
+                    self._flush_ctx = None
+            # a flush that completed without a device dispatch ran the
+            # host path; set only on success, so a crashed flush seals
+            # as "error"
+            if rec["outcome"] is None:
+                rec["outcome"] = "host"
+
+    async def _flush_batch_inner(self, batch: list, brk, rec: dict) -> None:
+        self.M["batch"].observe(len(batch))
+        g = self.get_map()
+        if g is None:
+            for q in batch:
+                self._resolve(q, "host", self._no_graph())
+            return
+        host, device = self._screen(batch)
+        if device and not brk.allow():
+            # breaker open: the device share fails with BreakerOpen.
+            # allow() is consulted only once a dispatch is certain to
+            # follow: a half-open probe token is always settled by the
+            # record_success / record_failure below
+            rec["outcome"] = "breaker"
+            err = _breaker.BreakerOpen(self.FAMILY, brk.retry_in_s())
+            for q in device:
+                self._resolve(q, "device", ("error", err))
+            device = []
+        if device:
+            lanes = -(-len(device) // self.batch) * self.batch
+            rec["n_real"] = len(device)
+            rec["lanes"] = lanes
+            rec["occupancy"] = round(len(device) / lanes, 4)
+            io_acct: dict = {}
+            try:
+                with trace.annotation(f"{self.FAMILY}/dispatch",
+                                      self.device):
+                    results = await self._solve(g, device, io_acct)
+                self.M["occupancy"].observe(len(device) / lanes)
+                brk.record_success()
+                rec["outcome"] = "ok"
+                rec["h2d_bytes"] = io_acct.get("h2d_bytes", 0)
+                rec["d2h_bytes"] = io_acct.get("d2h_bytes", 0)
+            except _deadline.DeadlineExceeded as e:
+                brk.record_failure()
+                rec["outcome"] = "deadline"
+                log.warning("%s dispatch blew its deadline; its %d "
+                            "queries fail", self.FAMILY, len(device))
+                self._fail_device(device, e)
+                results, device = [], []
+            except Exception as e:
+                brk.record_failure()
+                rec["outcome"] = "error"
+                rec["error"] = type(e).__name__
+                log.error("%s dispatch failed (%s); its %d queries fail",
+                          self.FAMILY, e, len(device))
+                self._fail_device(device, e)
+                results, device = [], []
+            for q, res in zip(device, results):
+                if res[0] == "fallback":
+                    host.append((q, res[1]))
+                else:
+                    self._resolve(q, "device", res)
+        # ON the event loop, deliberately: accepted channel_updates
+        # mutate the live Gossmap from the loop, and the host solvers
+        # read those arrays live; the device path reads its planes
+        for _, reason in host:
+            self.M["fallback"].labels(reason).inc()
+        for q, _ in host:
+            self._resolve(q, "host", self._host_solve(g, q))
+            await asyncio.sleep(0)
+
+    def _fail_device(self, device: list, err: BaseException) -> None:
+        for q in device:
+            self._resolve(q, "device", ("error", err))
+
+    async def _dispatch(self, fn, *args, first: bool = True):
+        """One dispatch round of ``fn(*args)`` in a worker thread under
+        the deadline.  The first round of a flush fires the ``dispatch``
+        fault seam, on the loop and inside the deadline, so an injected
+        hang blows the deadline as a hung card would."""
+        async def run():
+            if first:
+                _fault.fire("dispatch", self.FAMILY)
+            return await asyncio.to_thread(fn, *args)
+        return await _deadline.guard(run(), self.deadline_s, self.FAMILY,
+                                     "dispatch")
+
+    def _screen(self, batch: list) -> tuple[list, list]:
+        raise NotImplementedError
+
+    async def _solve(self, g, device: list, io_acct: dict) -> list:
+        raise NotImplementedError
+
+    def _no_graph(self) -> tuple:
+        raise NotImplementedError
+
+    def _host_solve(self, g, q) -> tuple:
+        raise NotImplementedError
+
+    def _resolve(self, q, path: str, res: tuple) -> None:
         raise NotImplementedError
 
 
@@ -512,6 +681,12 @@ class RouteService(FlushService):
     FLUSH_MS = ROUTE_FLUSH_MS
     BATCH = ROUTE_BATCH
     HIGH_WM = ROUTE_HIGH_WM
+    M = {"flush_seconds": _families.ROUTE_FLUSH_SECONDS,
+         "batch": _families.ROUTE_BATCH_QUERIES,
+         "occupancy": _families.ROUTE_OCCUPANCY,
+         "queries": _families.ROUTE_QUERIES,
+         "fallback": _families.ROUTE_FALLBACK,
+         "queue": _families.ROUTE_QUEUE}
 
     async def getroute(self, source: bytes, destination: bytes,
                        amount_msat: int, final_cltv: int = 18,
@@ -524,21 +699,19 @@ class RouteService(FlushService):
             raise NoRoute("no gossip graph loaded")
         if source == destination:
             raise NoRoute("source is destination")
-        q = RouteQuery(
-            source, destination, int(amount_msat), int(final_cltv),
-            int(riskfactor), int(max_hops), excluded_scids,
-            future=self._admit())
-        self._enqueue(q)
+        # the enqueue span: the carrier minted here rides the query into
+        # the flush, so the exported timeline flows this call to the
+        # batched dispatch that solved it
+        with trace.span("route/enqueue"):
+            q = RouteQuery(
+                source, destination, int(amount_msat), int(final_cltv),
+                int(riskfactor), int(max_hops), excluded_scids,
+                future=self._admit(), corr=trace.new_corr())
+            self._enqueue(q)
         route, src_info = await q.future
         return (route, src_info) if with_source else route
 
-    async def _flush_batch(self, batch: list[RouteQuery]) -> None:
-        g = self.get_map()
-        if g is None:
-            for q in batch:
-                self._resolve(q, "host", ("noroute",
-                                          "no gossip graph loaded"))
-            return
+    def _screen(self, batch: list[RouteQuery]) -> tuple[list, list]:
         host: list[tuple[RouteQuery, str]] = []
         device: list[RouteQuery] = []
         for q in batch:
@@ -553,26 +726,18 @@ class RouteService(FlushService):
                 host.append((q, R_MAX_HOPS))
             else:
                 device.append(q)
-        if device:
-            self._planes = RoutePlanes.current(g, self._planes, self.device)
-            results = await asyncio.to_thread(solve_batch, self._planes,
-                                              device, self.batch)
-            self._note_device(len(device))
-            for q, res in zip(device, results):
-                if res[0] == "fallback":
-                    host.append((q, res[1]))
-                else:
-                    self._resolve(q, "device", res)
-        # ON the event loop, deliberately: accepted channel_updates
-        # mutate the live Gossmap from the loop, and dijkstra reads those
-        # arrays live; the device path reads its immutable planes
-        for q, reason in host:
-            self.stats.count(self.stats.host, reason)
-            self._resolve(q, "host", self._host_solve(g, q))
-            await asyncio.sleep(0)
+        return host, device
 
-    @staticmethod
-    def _host_solve(g, q: RouteQuery) -> tuple:
+    async def _solve(self, g, device: list[RouteQuery],
+                     io_acct: dict) -> list:
+        self._planes = RoutePlanes.current(g, self._planes, self.device)
+        return await self._dispatch(solve_batch, self._planes, device,
+                                    self.batch, io_acct)
+
+    def _no_graph(self) -> tuple:
+        return ("noroute", "no gossip graph loaded")
+
+    def _host_solve(self, g, q: RouteQuery) -> tuple:
         try:
             route, src_info = DJ.getroute(
                 g, q.source, q.destination, q.amount_msat,
@@ -589,14 +754,14 @@ class RouteService(FlushService):
         fut = q.future
         if fut.done():
             return
-        outcome = res[0] if res[0] in ("ok", "noroute") else "error"
-        self.stats.count(self.stats.queries, (path, outcome))
         if res[0] == "ok":
+            self.M["queries"].labels(path, "ok").inc()
             fut.set_result((res[1], res[2]))
         elif res[0] == "noroute":
+            self.M["queries"].labels(path, "noroute").inc()
             fut.set_exception(NoRoute(res[1]))
         else:
+            self.M["queries"].labels(path, "error").inc()
             err = res[1]
             fut.set_exception(err if isinstance(err, BaseException)
                               else RuntimeError(str(err)))
-

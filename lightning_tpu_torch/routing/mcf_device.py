@@ -31,20 +31,30 @@ query the planes cannot express (layer-created channels or per-direction
 layer updates: a different topology; amounts past 2^48; max_parts past
 the augmentation budget) or whose answer could not be proven (walk cap,
 decomposition mismatch) is answered by the host oracle
-``mcf.getroutes``, counted by reason in ``McfService.stats``.  A
-dispatch that raises fails its flush's queries with the error.
+``mcf.getroutes``, counted by reason in ``clntpu_mcf_fallback_total``.
+McfService's flushes are supervised as routing/device.py's are (the
+"mcf" family, the same outcome mapping): an open breaker, a blown
+deadline or a dispatch error fails the flush's device queries, and
+nothing is re-solved on the host for them.
 """
 from __future__ import annotations
 
-import asyncio
 import dataclasses
 import logging
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import device as D
+from ..obs import attribution as _attr
+from ..obs import families as _families
+from ..obs import journey as _journey
+from ..resilience import deadline as _deadline
+from ..resilience import overload as _overload
+from ..resilience import quarantine as _quarantine
+from ..utils import trace
 from . import hopper_route as HR
 from . import mcf as MCF
 from .device import FlushService
@@ -150,6 +160,9 @@ class McfPlanes:
     i_src: np.ndarray      # (2*a_fwd_pad,) int32 (fwd 2k, rev 2k+1)
     i_dst: np.ndarray      # (2*a_fwd_pad,) int32
     dirs: tuple            # (_DirLanes, _DirLanes)
+    # the map's change-log position at params_version (the journey's
+    # mcf_planes hop names the updates a refresh picked up)
+    params_log_pos: int = 0
     device: torch.device = torch.device("cpu")
     dev: dict = field(default_factory=dict)
 
@@ -185,6 +198,7 @@ class McfPlanes:
             a_fwd_real=a_fwd_real, a_fwd_pad=a_fwd_pad,
             i_src=i_src, i_dst=i_dst,
             dirs=tuple(cls._dir_lanes(view, d) for d in (0, 1)),
+            params_log_pos=g.param_log_pos,
             device=dev,
         )
 
@@ -217,6 +231,7 @@ class McfPlanes:
         return dataclasses.replace(
             self, view=view,
             params_version=self.g.params_version,
+            params_log_pos=self.g.param_log_pos,
             dirs=tuple(self._dir_lanes(view, d) for d in (0, 1)),
             dev=dict(self.dev),
         )
@@ -252,7 +267,18 @@ class McfPlanes:
                 or cached.topo_version != g.topology_version):
             return cls.build(g, device)
         if cached.params_version != g.params_version:
-            return cached.with_fresh_params()
+            fresh = cached.with_fresh_params()
+            if _journey.enabled():
+                # journey terminus for the MCF view: the sampled
+                # channel_update's parameters are now in the lanes the
+                # next batched solve prices against
+                entries = g.param_entries_since(cached.params_log_pos)
+                if entries is not None:
+                    for c, d in set(entries):
+                        _journey.hop("mcf_planes", "channel",
+                                     int(g.scids[int(c)]),
+                                     outcome="fresh", direction=int(d))
+            return fresh
         return cached
 
 
@@ -399,6 +425,11 @@ class McfQuery:
     prob_weight: float = 1.0
     delay_weight: float = 1.0
     future: object = None
+    # the correlation carrier minted in the mcf/enqueue span, the
+    # payment whose journey the query's hops join, and the enqueue time
+    corr: object = None
+    journey_key: object = None
+    t_enq: float = 0.0
 
 
 def _expressible(q: McfQuery) -> str | None:
@@ -506,19 +537,33 @@ def _prep_chunk(planes: McfPlanes, chunk: list[McfQuery], batch: int,
     return cost, res, src, dst, amount, aug_cap
 
 
-def _dispatch_lanes(planes: McfPlanes, ops: tuple):
+def _dispatch_lanes(planes: McfPlanes, ops: tuple,
+                    io_acct: dict | None = None):
     """Upload the chunk's lanes (and, once per topology revision, the arc
     endpoints), run the batched solve (R2 on the card, its plain version
-    on the CPU), read back the flows."""
-    return tuple(t.cpu().numpy() for t in HR.mcf_solve(
+    on the CPU), read back the flows.  The staged bytes are counted in
+    clntpu_transfer_bytes_total{family="mcf"} and added to ``io_acct``."""
+    h2d = sum(a.nbytes for a in ops)
+    if "i_src" not in planes.dev:
+        h2d += planes.i_src.nbytes + planes.i_dst.nbytes
+    _attr.note_program("mcf", (planes.n_pad, planes.a_fwd_pad,
+                               ops[0].shape[0]))
+    out = tuple(t.cpu().numpy() for t in HR.mcf_solve(
         *planes.device_arcs(),
         *(torch.as_tensor(a, device=planes.device) for a in ops),
         planes.n_pad))
+    d2h = sum(a.nbytes for a in out)
+    _families.TRANSFER_BYTES.labels("mcf", "h2d").inc(h2d)
+    _families.TRANSFER_BYTES.labels("mcf", "d2h").inc(d2h)
+    if io_acct is not None:
+        io_acct["h2d_bytes"] = io_acct.get("h2d_bytes", 0) + h2d
+        io_acct["d2h_bytes"] = io_acct.get("d2h_bytes", 0) + d2h
+    return out
 
 
 def _solve_indices(planes: McfPlanes, queries: list[McfQuery],
                    idx_list: list[int], batch: int, prob_scale: float,
-                   out: list) -> list:
+                   out: list, io_acct: dict | None = None) -> list:
     """Prep + dispatch the named queries (blocking; runs in the flush
     worker).  Screening failures resolve straight into ``out``; device
     results come back as (index, flow_row, remaining, nopath, walkfail)
@@ -534,7 +579,8 @@ def _solve_indices(planes: McfPlanes, queries: list[McfQuery],
                 out[j] = sub[i]
         if all(r is not None for r in sub):
             continue
-        flow, remaining, nopath, walkfail = _dispatch_lanes(planes, ops)
+        flow, remaining, nopath, walkfail = _dispatch_lanes(planes, ops,
+                                                            io_acct)
         for i, j in enumerate(idxs):
             if out[j] is None:
                 readback.append((j, flow[i], int(remaining[i]),
@@ -565,7 +611,8 @@ def _judge_round(planes: McfPlanes, queries: list[McfQuery],
 
 
 def solve_mcf_batch(planes: McfPlanes, queries: list[McfQuery],
-                    batch: int = MCF_BATCH) -> list[tuple]:
+                    batch: int = MCF_BATCH,
+                    io_acct: dict | None = None) -> list[tuple]:
     """Solve every query in ceil(Q / batch) dispatches on
     ``planes.device``, with host-side decomposition and the host's
     two-attempt maxfee semantics (a blown budget re-solves with the
@@ -579,11 +626,11 @@ def solve_mcf_batch(planes: McfPlanes, queries: list[McfQuery],
     """
     out: list = [None] * len(queries)
     rb = _solve_indices(planes, queries, list(range(len(queries))),
-                        batch, 1.0, out)
+                        batch, 1.0, out, io_acct)
     retry = _judge_round(planes, queries, rb, out, final_attempt=False)
     if retry:
         rb2 = _solve_indices(planes, queries, retry, batch, 1.0 / 100.0,
-                             out)
+                             out, io_acct)
         _judge_round(planes, queries, rb2, out, final_attempt=True)
     return out
 
@@ -594,7 +641,10 @@ def solve_mcf_batch(planes: McfPlanes, queries: list[McfQuery],
 
 class McfService(FlushService):
     """Coalesce concurrent getroutes / xpay min-cost-flow queries into
-    batched solves on the card.
+    batched solves on the card, supervised as the "mcf" dispatch family
+    (routing/device.py's ``FlushService``: breaker, fault seam, a
+    deadline on each dispatch round, flight record, spans, the
+    ``clntpu_mcf_*`` families).
 
     ``getroutes()`` is a drop-in awaitable for mcf.getroutes: same
     result dict, same McfError / KeyError behaviour."""
@@ -603,6 +653,13 @@ class McfService(FlushService):
     FLUSH_MS = MCF_FLUSH_MS
     BATCH = MCF_BATCH
     HIGH_WM = MCF_HIGH_WM
+    M = {"flush_seconds": _families.MCF_FLUSH_SECONDS,
+         "batch": _families.MCF_BATCH_QUERIES,
+         "occupancy": _families.MCF_OCCUPANCY,
+         "queries": _families.MCF_QUERIES,
+         "fallback": _families.MCF_FALLBACK,
+         "queue": _families.MCF_QUEUE}
+    JOURNEY_STAGE = "mcf"
 
     async def getroutes(self, source: bytes, destination: bytes,
                         amount_msat: int, *, layers=None,
@@ -610,24 +667,36 @@ class McfService(FlushService):
                         final_cltv: int = 18,
                         max_parts: int = MCF.MAX_PARTS,
                         prob_weight: float = 1.0,
-                        delay_weight: float = 1.0) -> dict:
+                        delay_weight: float = 1.0,
+                        journey_key=None) -> dict:
+        """``journey_key`` (a payment hash, optional) joins this query's
+        pipeline hops to that payment's journey."""
         g = self.get_map()
         if g is None:
             raise MCF.McfError("no gossip graph loaded")
-        q = McfQuery(
-            source, destination, int(amount_msat), _freeze_layers(layers),
-            maxfee_msat, int(final_cltv), int(max_parts),
-            float(prob_weight), float(delay_weight), future=self._admit())
-        self._enqueue(q)
+        with trace.span("mcf/enqueue"):
+            corr = trace.new_corr()
+            if journey_key is not None:
+                _journey.hop("enqueue", "payment", journey_key,
+                             outcome="ok", corr_id=corr.corr_id,
+                             amount_msat=int(amount_msat))
+            try:
+                fut = self._admit()
+            except _overload.Overloaded:
+                if journey_key is not None:
+                    _journey.hop("shed", "payment", journey_key,
+                                 outcome="overload", reason="admission")
+                raise
+            q = McfQuery(
+                source, destination, int(amount_msat),
+                _freeze_layers(layers), maxfee_msat, int(final_cltv),
+                int(max_parts), float(prob_weight), float(delay_weight),
+                future=fut, corr=corr, journey_key=journey_key,
+                t_enq=self.now())
+            self._enqueue(q)
         return await q.future
 
-    async def _flush_batch(self, batch: list[McfQuery]) -> None:
-        g = self.get_map()
-        if g is None:
-            for q in batch:
-                self._resolve(q, "host",
-                              ("mcferr", "no gossip graph loaded"))
-            return
+    def _screen(self, batch: list[McfQuery]) -> tuple[list, list]:
         host: list[tuple[McfQuery, str]] = []
         device: list[McfQuery] = []
         for q in batch:
@@ -636,40 +705,40 @@ class McfService(FlushService):
                 host.append((q, reason))
             else:
                 device.append(q)
-        if device:
-            self._planes = McfPlanes.current(g, self._planes, self.device)
-            planes = self._planes
-            results: list = [None] * len(device)
-            # lane prep and the solve run in the worker, judging
-            # (decomposition and fees) back on the loop; both read the
-            # planes' copy of the map's parameters, so the answers are
-            # those of the revision solved, whatever channel_updates
-            # land meanwhile
-            todo = list(range(len(device)))
-            for attempt, scale in enumerate((1.0, 1.0 / 100.0)):
-                rb = await asyncio.to_thread(
-                    _solve_indices, planes, device, todo, self.batch,
-                    scale, results)
-                todo = _judge_round(planes, device, rb, results,
-                                    final_attempt=attempt == 1)
-                if not todo:
-                    break
-            self._note_device(len(device))
-            for q, res in zip(device, results):
-                if res[0] == "fallback":
-                    host.append((q, res[1]))
-                else:
-                    self._resolve(q, "device", res)
-        # ON the event loop, deliberately: the host oracle reads the
-        # live gossmap arrays, which accepted channel_updates update
-        # from the loop
-        for q, reason in host:
-            self.stats.count(self.stats.host, reason)
-            self._resolve(q, "host", self._host_solve(g, q))
-            await asyncio.sleep(0)
+        return host, device
 
-    @staticmethod
-    def _host_solve(g, q: McfQuery) -> tuple:
+    async def _solve(self, g, device: list[McfQuery],
+                     io_acct: dict) -> list:
+        self._planes = McfPlanes.current(g, self._planes, self.device)
+        planes = self._planes
+        results: list = [None] * len(device)
+        # lane prep and the solve run in the worker, judging
+        # (decomposition and fees) back on the loop; both read the planes'
+        # copy of the map's parameters, so the answers are those of the
+        # revision solved, whatever channel_updates land meanwhile.  The
+        # deadline bounds each round.
+        todo = list(range(len(device)))
+        for attempt, scale in enumerate((1.0, 1.0 / 100.0)):
+            rb = await self._dispatch(
+                _solve_indices, planes, device, todo, self.batch, scale,
+                results, io_acct, first=attempt == 0)
+            todo = _judge_round(planes, device, rb, results,
+                                final_attempt=attempt == 1)
+            if not todo:
+                break
+        return results
+
+    def _fail_device(self, device: list, err: BaseException) -> None:
+        if not isinstance(err, _deadline.DeadlineExceeded):
+            # the JAX package counts a failed dispatch's rows as
+            # quarantined (and re-solves them on the host)
+            _quarantine.note("mcf", "dispatch", rows=len(device))
+        super()._fail_device(device, err)
+
+    def _no_graph(self) -> tuple:
+        return ("mcferr", "no gossip graph loaded")
+
+    def _host_solve(self, g, q: McfQuery) -> tuple:
         try:
             res = MCF.getroutes(
                 g, q.source, q.destination, q.amount_msat,
@@ -687,13 +756,33 @@ class McfService(FlushService):
         fut = q.future
         if fut is None or fut.done():
             return
-        outcome = {"ok": "ok", "mcferr": "noroute"}.get(res[0], "error")
-        self.stats.count(self.stats.queries, (path, outcome))
+        if q.journey_key is not None:
+            corr_id = q.corr.corr_id if q.corr else None
+            ctx = self._flush_ctx
+            if ctx is not None:
+                # the batched-solve hop, before the parts hop, so the
+                # journey reads in pipeline order (enqueue -> mcf_flush
+                # -> parts)
+                t_flush0, t_svc0, rec = ctx
+                _journey.hop(
+                    "mcf_flush", "payment", q.journey_key, outcome=path,
+                    wait_s=max(0.0, t_flush0 - q.t_enq)
+                    if q.t_enq else 0.0,
+                    service_s=time.perf_counter() - t_svc0,
+                    dispatch_id=rec["dispatch_id"], corr_id=corr_id)
+            _journey.hop(
+                "parts", "payment", q.journey_key, outcome=res[0],
+                corr_id=corr_id, path=path,
+                **({"parts": res[1]["parts"]} if res[0] == "ok" else {}))
         if res[0] == "ok":
+            self.M["queries"].labels(path, "ok").inc()
+            _families.MCF_PARTS.observe(res[1]["parts"])
             fut.set_result(res[1])
         elif res[0] == "mcferr":
+            self.M["queries"].labels(path, "noroute").inc()
             fut.set_exception(MCF.McfError(res[1]))
         else:
+            self.M["queries"].labels(path, "error").inc()
             err = res[1]
             fut.set_exception(err if isinstance(err, BaseException)
                               else RuntimeError(str(err)))

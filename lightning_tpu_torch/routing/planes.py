@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import device as D
+from ..obs import journey as _journey
 from ..gossip.gossmap import Gossmap
 
 # htlc_max is u64 on the wire; the device cost model runs in int64.
@@ -34,6 +35,17 @@ _I64_CLAMP = (1 << 62) - 1
 
 _MIN_NODE_PAD = 64
 _MIN_EDGE_PAD = 256
+
+
+def _note_planes_journey(g, entries, outcome: str) -> None:
+    """A journey hop a refreshed (channel, direction) pair: the sampled
+    channel_update's provenance ends here, the route planes picked its
+    parameters up.  Nothing runs when sampling is off."""
+    if not _journey.enabled():
+        return
+    for c, d in set(entries):
+        _journey.hop("planes", "channel", int(g.scids[int(c)]),
+                     outcome=outcome, direction=int(d))
 
 
 def in_csr(edge_dst: np.ndarray, n_nodes: int) -> np.ndarray:
@@ -250,8 +262,13 @@ class RoutePlanes:
             # touches few lanes, which is what patching amortizes
             if entries is not None and len(set(entries)) <= max(
                     64, cached.e_real // cls._PATCH_MAX_FRACTION):
-                return cached.with_patched_params(entries)
-            return cached.with_fresh_params()
+                fresh = cached.with_patched_params(entries)
+                _note_planes_journey(g, entries, "patched")
+                return fresh
+            fresh = cached.with_fresh_params()
+            if entries is not None:
+                _note_planes_journey(g, entries, "fresh")
+            return fresh
         return cached
 
     # -- query-side helpers ----------------------------------------------

@@ -252,7 +252,7 @@ def main(argv=None) -> int:
                              seed=args.seed, device=dev)
     g = gossmap.from_store(store.load_store(path))
     planes = RoutePlanes.build(g, dev)
-    plane_args = RD._device_plane_args(planes)
+    plane_args, _ = RD._device_plane_args(planes)
     in_off = planes.dev["in_off"]
     rng = np.random.default_rng(11)
     pr = [pair(g, rng) for _ in range(RD.ROUTE_BATCH)]

@@ -653,7 +653,7 @@ def test_route_sweep_kernel_matches_plain(small_store):
     g.fee_ppm[:, :20] = 9_999           # overflow at the largest amounts
     g.htlc_max_msat[:, :20] = 0
     planes = RoutePlanes.build(g, "cuda")
-    args = RD._device_plane_args(planes)
+    args, _ = RD._device_plane_args(planes)
     in_off = planes.dev["in_off"]
     gen = np.random.default_rng(5)
     Bq = 67
@@ -796,3 +796,85 @@ def test_mcf_solve_kernel_matches_plain(small_store):
     cpu = MD.solve_mcf_batch(MD.McfPlanes.build(g, "cpu"), qs)
     assert repr(card) == repr(cpu)
     assert sum(r[0] == "ok" for r in card) >= 8
+
+
+def _supervised_run(svc, calls, fam):
+    import asyncio
+
+    from lightning_tpu_torch.obs import flight
+
+    base = max([r["dispatch_id"] for r in flight.recent(fam)] or [0])
+
+    async def go():
+        svc.start()
+        out = await asyncio.gather(*(c(svc) for c in calls),
+                                   return_exceptions=True)
+        await svc.close()
+        return out
+    out = asyncio.run(go())
+    return out, [r for r in flight.recent(fam) if r["dispatch_id"] > base]
+
+
+@pytest.mark.parametrize("spec", [None, "dispatch:*:raise:1.0"],
+                         ids=["clean", "faulted"])
+def test_supervised_services_on_card_match_cpu(small_store, spec):
+    """RouteService and McfService on the card and on the CPU: clean, the
+    same answers, one "ok" flight record a flush and R1's / R2's launches
+    the records' batches on the card; with every dispatch faulted, the
+    card's queries fail with the injected error, records "error", no
+    launch, no host answer."""
+    import contextlib
+
+    from lightning_tpu_torch.resilience import breaker, faultinject
+    from lightning_tpu_torch.routing import device as RD
+    from lightning_tpu_torch.routing import hopper_route as HR
+    from lightning_tpu_torch.routing import mcf_device as MD
+
+    g = _route_graph(small_store)
+    gen = np.random.default_rng(12)
+    pairs = [gen.choice(g.n_nodes, 2, replace=False) for _ in range(40)]
+    rq = [(bytes(g.node_ids[a]), bytes(g.node_ids[b]),
+           int(gen.integers(10**3, 10**8))) for a, b in pairs]
+    mq = rq[:9]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        breaker.reset_for_tests()
+        HR.reset_launches()
+        arm = faultinject.arm(spec) if spec and dev == "cuda" \
+            else contextlib.nullcontext()
+        with arm:
+            r, rrec = _supervised_run(
+                RD.RouteService(lambda: g, device=dev, batch=16),
+                [(lambda q: lambda s: s.getroute(*q, with_source=True))(q)
+                 for q in rq], "route")
+            m, mrec = _supervised_run(
+                MD.McfService(lambda: g, device=dev),
+                [(lambda q: lambda s: s.getroutes(*q, max_parts=8))(q)
+                 for q in mq], "mcf")
+        out[dev] = (r, rrec, m, mrec, HR.launch_counts())
+    r, rrec, m, mrec, counts = out["cuda"]
+    if spec is None:
+        assert repr(r) == repr(out["cpu"][0])
+        assert repr(m) == repr(out["cpu"][2])
+        assert {x["outcome"] for x in rrec + mrec} == {"ok"}
+        assert counts == {
+            "route_sweep": sum(x["lanes"] // 16 for x in rrec),
+            "mcf_solve": sum(x["lanes"] // MD.MCF_BATCH for x in mrec)}
+    else:
+        assert all(isinstance(x, faultinject.FaultInjected) for x in r + m)
+        assert {x["outcome"] for x in rrec + mrec} == {"error"}
+        assert counts == {"route_sweep": 0, "mcf_solve": 0}
+    breaker.reset_for_tests()
+
+
+def test_sample_device_memory_reads_the_caching_allocator(cuda):
+    from lightning_tpu_torch.obs import attribution
+
+    x = torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+    mem = attribution.sample_device_memory()
+    stats = mem[f"cuda:{torch.cuda.current_device()}"]
+    assert stats["bytes_in_use"] >= x.numel()
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_reserved"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info()[1]
+    del x

@@ -81,6 +81,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "lightning_tpu_torch.obs.collector",
                 "lightning_tpu_torch.obs.families",
                 "lightning_tpu_torch.obs.flight",
+                "lightning_tpu_torch.obs.journey",
+                "lightning_tpu_torch.obs.attribution",
+                "lightning_tpu_torch.obs.health",
+                "lightning_tpu_torch.obs.traceexport",
+                "lightning_tpu_torch.obs.incident",
                 "lightning_tpu_torch.resilience.faultinject",
                 "lightning_tpu_torch.resilience.quarantine"):
         assert mod in got["modules"]

@@ -21,9 +21,13 @@ import torch
 from lightning_tpu.gossip import gossmap as JGM
 from lightning_tpu.gossip import ingest as JI
 from lightning_tpu.gossip import store as JST
+from lightning_tpu import obs as JOBS
+from lightning_tpu.obs import journey as JJ
 from lightning_tpu.resilience import breaker as JB
 from lightning_tpu.resilience import overload as JO
 from lightning_tpu_torch import convert
+from lightning_tpu_torch import obs as TOBS
+from lightning_tpu_torch.obs import journey as TJ
 from lightning_tpu_torch.crypto import ref_python as ref
 from lightning_tpu_torch.gossip import gossmap as TGM
 from lightning_tpu_torch.gossip import ingest as TI
@@ -207,10 +211,49 @@ def script():
     return _script()
 
 
-def test_ingest_matches_jax_package(tmp_path, jax_cpu_verify, script):
+def _journeys(J) -> list:
+    """Every journey, keyed and ordered by entity, its hops without the
+    process's ids and times: wait_ms stays (the fake clock's), and of the
+    dispatch and corr ids only whether the hop has one."""
+    out = []
+    for j in sorted(J.recent(limit=0), key=lambda j: (j["kind"],
+                                                      str(j["key"]))):
+        out.append((j["kind"], j["key"], j["done"], j["truncated"], [
+            (h["hop"], h["outcome"], h["wait_ms"], h.get("attrs"),
+             h["dispatch_id"] is not None, h["corr_id"] is not None)
+            for h in j["hops"]]))
+    return out
+
+
+def _batch_wait(o) -> float:
+    fam = o.snapshot()["metrics"]["clntpu_journey_batch_wait_seconds_total"]
+    return sum(x["value"] for x in fam["samples"]
+               if x["labels"]["stage"] == "verify")
+
+
+def test_ingest_matches_jax_package(tmp_path, jax_cpu_verify, script,
+                                    monkeypatch):
+    """With every entity's journey sampled: the stores, stats, tables,
+    streams and gossmaps, and the journeys' hops (admit, verify, store,
+    the drops and sheds) and the batch-side queue wait."""
+    monkeypatch.setenv("LIGHTNING_TPU_JOURNEY_SAMPLE", "1")
+    JJ.reset_for_tests()
+    TJ.configure(sample=1)
+    w0 = (_batch_wait(JOBS), _batch_wait(TOBS))
     jp, tp = str(tmp_path / "jax.gs"), str(tmp_path / "port.gs")
-    jing, jstream = asyncio.run(_drive(JI, jp, script, {}))
-    ting, tstream = asyncio.run(_drive(TI, tp, script, {"device": "cpu"}))
+    try:
+        jing, jstream = asyncio.run(_drive(JI, jp, script, {}))
+        ting, tstream = asyncio.run(_drive(TI, tp, script,
+                                           {"device": "cpu"}))
+        jour = _journeys(JJ), _journeys(TJ)
+    finally:
+        monkeypatch.delenv("LIGHTNING_TPU_JOURNEY_SAMPLE")
+        JJ.reset_for_tests()
+        TJ.reset_for_tests()
+    assert jour[1] == jour[0] and len(jour[1]) >= 8
+    hops = {h[0] for j in jour[1] for h in j[4]}
+    assert {"admit", "verify", "store", "drop"} <= hops
+    assert _batch_wait(TOBS) - w0[1] == _batch_wait(JOBS) - w0[0]
     assert _read(tp) == _read(jp)
     assert _state(ting) == _state(jing)
     assert tstream == jstream

@@ -24,6 +24,9 @@ from lightning_tpu.gossip import store as RS
 from lightning_tpu.gossip import synth as RSY
 from lightning_tpu.routing import mcf as RMCF
 from lightning_tpu_torch import convert
+from lightning_tpu_torch import obs as TO
+from lightning_tpu_torch.obs import flight as TFL
+from lightning_tpu_torch.resilience import breaker as TB
 from lightning_tpu_torch.routing import hopper_route as HR
 from lightning_tpu_torch.routing import mcf as TMCF
 from lightning_tpu_torch.routing import mcf_device as TM
@@ -263,7 +266,40 @@ def test_solve_mcf_batch_matches_reference_and_oracle(ref, tmp_path):
                 assert _host(TMCF, tg, q) == r
 
 
+def _deltas(s0, s1, name):
+    """{labels: increase} of a family between two obs snapshots (a
+    histogram's observation count), zero entries left out."""
+    def vals(snap):
+        fam = snap["metrics"].get(name, {"samples": []})
+        return {tuple(x["labels"].values()):
+                x.get("value", x.get("count", 0)) for x in fam["samples"]}
+    a, b = vals(s0), vals(s1)
+    return {k: v - a.get(k, 0) for k, v in b.items() if v != a.get(k, 0)}
+
+
+def _counts(s0, s1, last_id):
+    """What a McfService run counted between two snapshots: flushes,
+    loop restarts, host answers by reason, queries by (path, outcome)
+    and the run's flight records."""
+    return {
+        "flushes": sum(_deltas(s0, s1, "clntpu_mcf_flush_seconds").values()),
+        "restarts": sum(_deltas(s0, s1, "clntpu_loop_restarts_total")
+                        .values()),
+        "host": {k[0]: v for k, v in
+                 _deltas(s0, s1, "clntpu_mcf_fallback_total").items()},
+        "queries": _deltas(s0, s1, "clntpu_mcf_queries_total"),
+        "records": [r for r in TFL.recent("mcf")
+                    if r["dispatch_id"] > last_id]}
+
+
+def _last_id():
+    return max([r["dispatch_id"] for r in TFL.recent("mcf")] or [0])
+
+
 def _service_run(tg, queries, **kw):
+    TB.reset_for_tests()
+    last = _last_id()
+
     async def go():
         svc = TM.McfService(lambda: tg, device=CPU, batch=Q, flush_ms=20.0,
                             **kw)
@@ -274,8 +310,10 @@ def _service_run(tg, queries, **kw):
                             max_parts=q.max_parts) for q in queries),
             return_exceptions=True)
         await svc.close()
-        return svc, res
-    return asyncio.run(go())
+        return res
+    s0 = TO.snapshot()
+    res = asyncio.run(go())
+    return _counts(s0, TO.snapshot(), last), res
 
 
 def test_mcf_service_answers_like_the_oracle(tmp_path):
@@ -296,7 +334,7 @@ def test_mcf_service_answers_like_the_oracle(tmp_path):
         "source": a, "destination": b"\x03" * 33, "capacity_sat": 50_000}},
         updates={(999_999, 0): {"enabled": True}})
     qs.append(TM.McfQuery(a, b"\x03" * 33, 30_000, layers=ly))
-    svc, res = _service_run(tg, qs)
+    st, res = _service_run(tg, qs)
     for q, r in zip(qs, res):
         want = _host(TMCF, tg, q)
         if want[0] == "ok":
@@ -306,11 +344,10 @@ def test_mcf_service_answers_like_the_oracle(tmp_path):
     assert res[-3]["fee_msat"] == second
     assert isinstance(res[-2], TMCF.McfError) and "exceeds maxfee" in \
         str(res[-2])
-    st = svc.stats
-    assert st.host == {TM.R_LAYERED: 1} and st.restarts == 0
-    assert st.device_queries == Q + 1
-    assert sum(st.queries.values()) == len(qs)
-    assert st.queries[("host", "ok")] == 1
+    assert st["host"] == {TM.R_LAYERED: 1} and st["restarts"] == 0
+    assert sum(r["n_real"] for r in st["records"]) == Q + 1
+    assert sum(st["queries"].values()) == len(qs)
+    assert st["queries"][("host", "ok")] == 1
 
 
 def test_mcf_service_dispatch_error_fails_the_flush(tmp_path, monkeypatch):
@@ -323,10 +360,11 @@ def test_mcf_service_dispatch_error_fails_the_flush(tmp_path, monkeypatch):
         raise RuntimeError("card lost")
 
     monkeypatch.setattr(TM, "_solve_indices", boom)
-    svc, res = _service_run(tg, qs)
+    st, res = _service_run(tg, qs)
     assert all(isinstance(r, RuntimeError) and "card lost" in str(r)
                for r in res)
-    assert svc.stats.restarts == 1 and svc.stats.host == {}
+    assert st["restarts"] == 0 and st["host"] == {}
+    assert [r["outcome"] for r in st["records"]] == ["error"]
 
 
 def test_mcf_service_answers_for_the_revision_it_solved(tmp_path,
@@ -363,6 +401,10 @@ def test_mcf_service_answers_for_the_revision_it_solved(tmp_path,
 
     monkeypatch.setattr(TM, "_solve_indices", move_the_map)
 
+    TB.reset_for_tests()
+    last = _last_id()
+    s0 = TO.snapshot()
+
     async def go():
         svc = TM.McfService(lambda: tg, device=CPU, batch=Q, flush_ms=20.0)
         svc.start()
@@ -376,14 +418,14 @@ def test_mcf_service_answers_for_the_revision_it_solved(tmp_path,
                 return_exceptions=True)
             waves.append((before, res))
         await svc.close()
-        return svc, waves
+        return waves
 
-    svc, waves = asyncio.run(go())
+    waves = asyncio.run(go())
+    st = _counts(s0, TO.snapshot(), last)
     assert len(dispatches) == 4 and dispatches[::2] == [Q, Q]
-    st = svc.stats
-    assert st.flushes == 2 and st.host == {} and st.restarts == 0
-    assert sum(st.queries.values()) == 2 * Q
-    assert all(path == "device" for path, _ in st.queries)
+    assert st["flushes"] == 2 and st["host"] == {} and st["restarts"] == 0
+    assert sum(st["queries"].values()) == 2 * Q
+    assert all(path == "device" for path, _ in st["queries"])
     moved = 0
     for before, res in waves:
         for q, r in zip(qs, res):

@@ -26,6 +26,9 @@ from lightning_tpu.gossip import synth as RSY
 from lightning_tpu.routing import dijkstra as RDJ
 from lightning_tpu.routing.planes import RoutePlanes as RefPlanes
 from lightning_tpu_torch import convert
+from lightning_tpu_torch import obs as TO
+from lightning_tpu_torch.obs import flight as TFL
+from lightning_tpu_torch.resilience import breaker as TB
 from lightning_tpu_torch.resilience import overload
 from lightning_tpu_torch.routing import device as TD
 from lightning_tpu_torch.routing import dijkstra as TDJ
@@ -241,7 +244,24 @@ def test_dijkstra_matches_reference(tmp_path):
         assert out[0] == out[1]
 
 
+def _deltas(s0, s1, name):
+    """{labels: increase} of a family between two obs snapshots (a
+    histogram's observation count), zero entries left out."""
+    def vals(snap):
+        fam = snap["metrics"].get(name, {"samples": []})
+        return {tuple(x["labels"].values()):
+                x.get("value", x.get("count", 0)) for x in fam["samples"]}
+    a, b = vals(s0), vals(s1)
+    return {k: v - a.get(k, 0) for k, v in b.items() if v != a.get(k, 0)}
+
+
 def _service_run(tg, queries, **kw):
+    """The queries through one RouteService; returns its results and
+    what the run counted: flushes, loop restarts, host answers by
+    reason, queries by (path, outcome) and the run's flight records."""
+    TB.reset_for_tests()
+    last = max([r["dispatch_id"] for r in TFL.recent("route")] or [0])
+
     async def go():
         svc = TD.RouteService(lambda: tg, device=CPU, batch=Q,
                               flush_ms=20.0, **kw)
@@ -252,8 +272,20 @@ def _service_run(tg, queries, **kw):
                            q.excluded_scids, with_source=True)
               for q in queries), return_exceptions=True)
         await svc.close()
-        return svc, res
-    return asyncio.run(go())
+        return res
+    s0 = TO.snapshot()
+    res = asyncio.run(go())
+    s1 = TO.snapshot()
+    st = {"flushes": sum(_deltas(s0, s1, "clntpu_route_flush_seconds")
+                         .values()),
+          "restarts": sum(_deltas(s0, s1, "clntpu_loop_restarts_total")
+                          .values()),
+          "host": {k[0]: v for k, v in
+                   _deltas(s0, s1, "clntpu_route_fallback_total").items()},
+          "queries": _deltas(s0, s1, "clntpu_route_queries_total"),
+          "records": [r for r in TFL.recent("route")
+                      if r["dispatch_id"] > last]}
+    return st, res
 
 
 def test_route_service_coalesces_and_counts_host_answers(tmp_path):
@@ -264,13 +296,13 @@ def test_route_service_coalesces_and_counts_host_answers(tmp_path):
     a, b = qs[0].source, qs[0].destination
     qs += [TD.RouteQuery(a, b, TD.ROUTE_MAX_AMOUNT_MSAT + 1),
            TD.RouteQuery(a, b, 50_000, max_hops=10)]
-    svc, res = _service_run(tg, qs)
-    st = svc.stats
-    assert st.flushes == 1 and st.restarts == 0
-    assert st.host == {TD.R_AMOUNT_CAP: 1, TD.R_MAX_HOPS: 1}
-    assert st.device_queries == Q - 2 and st.device_lanes == Q
-    assert sum(st.queries.values()) == Q
-    assert sum(n for (path, _), n in st.queries.items()
+    st, res = _service_run(tg, qs)
+    assert st["flushes"] == 1 and st["restarts"] == 0
+    assert st["host"] == {TD.R_AMOUNT_CAP: 1, TD.R_MAX_HOPS: 1}
+    rec, = st["records"]
+    assert (rec["outcome"], rec["n_real"], rec["lanes"]) == ("ok", Q - 2, Q)
+    assert sum(st["queries"].values()) == Q
+    assert sum(n for (path, _), n in st["queries"].items()
                if path == "device") == Q - 2
     for q, r in zip(qs, res):
         try:
@@ -283,19 +315,21 @@ def test_route_service_coalesces_and_counts_host_answers(tmp_path):
         assert TD.route_cost_msat(tg, r[0], q.riskfactor) == \
             TD.route_cost_msat(tg, want[0], q.riskfactor)
     # a flush of a few queries goes to the card all the same
-    svc, _ = _service_run(tg, qs[:3])
-    assert svc.stats.host == {} and svc.stats.device_queries == 3
+    st, _ = _service_run(tg, qs[:3])
+    assert st["host"] == {} and st["records"][0]["n_real"] == 3
     # admission past the high watermark refuses, retryably
-    svc, res = _service_run(tg, qs[:5], high_wm=2)
+    st, res = _service_run(tg, qs[:5], high_wm=2)
     refused = [r for r in res if isinstance(r, overload.Overloaded)]
     assert len(refused) == 3 and refused[0].retry_after_s > 0
-    assert svc.stats.flushes == 1 and sum(svc.stats.queries.values()) == 2
+    assert st["flushes"] == 1 and sum(st["queries"].values()) == 2
 
 
 def test_route_service_dispatch_error_fails_the_flush(tmp_path,
                                                       monkeypatch):
-    """A dispatch that raises fails its queries with the error and goes
-    to the restart loop; nothing is answered by the host."""
+    """A dispatch that raises fails its queries with the error: the
+    breaker counts a failure, the flush's flight record reads "error",
+    the loop runs on (no restart), and nothing is answered by the
+    host."""
     g = _net(tmp_path, 60, 16, 7)
     tg = convert.gossmap(g)
     qs = _queries(np.random.default_rng(1), g, TD, n=3)
@@ -304,11 +338,14 @@ def test_route_service_dispatch_error_fails_the_flush(tmp_path,
         raise RuntimeError("card lost")
 
     monkeypatch.setattr(TD, "solve_batch", boom)
-    svc, res = _service_run(tg, qs)
+    st, res = _service_run(tg, qs)
     assert all(isinstance(r, RuntimeError) and "card lost" in str(r)
                for r in res)
-    assert svc.stats.restarts == 1 and svc.stats.host == {}
-    assert svc.stats.queries == {("device", "error"): 3}
+    assert st["restarts"] == 0 and st["host"] == {}
+    assert st["queries"] == {("device", "error"): 3}
+    assert [(r["outcome"], r["error"]) for r in st["records"]] == [
+        ("error", "RuntimeError")]
+    assert TB.get("route").consecutive_failures == 1
 
     async def stopped():
         svc = TD.RouteService(lambda: tg, device=CPU)
