@@ -142,6 +142,22 @@ Phases, each fatal on failure:
    trace.json that validates with route/flush and mcf/flush spans and
    their flight events; the engine healthy again; every MCF journey
    enqueue -> mcf_flush -> parts.
+10. peer gossip at the width of a regtest 10k-channel node, with the
+   launch counters set to 0 just before and read just after: node A, a
+   LightningNode with a Gossipd on the card, loads a synth store of
+   10,000 channels and 1,250 nodes (61,250 signatures, seed 7, no
+   faults) with load_existing(verify=True), K1-K3 on the card; blank node
+   B dials A over loopback TCP with BOLT #8 Noise and its Seeker (seeded
+   rng, a fixed clock) ticks until B's accepted channels, updates and
+   node announcements equal A's, at most 5 rounds, each round's seconds,
+   sig/s and sheds printed; node C dials A and sends 1,000 fresh
+   channel_updates (signed on S2, 25 with a corrupted signature): A
+   accepts exactly the 975 good ones and fans them out to B under B's
+   timestamp filter, and B ends with exactly those; B's store replays
+   all valid on the card and holds each message of A's stores once; each
+   K1-K3 launch is booked, by CUDA events, to A's replay or a flush of A
+   or B, once a bucket; the Noise bytes each way and the AEAD's share of
+   the phase.
 
 Prints one {"kernels": [...]} line (each verify kernel's launches counted
 on the replay of the first engine that runs it, named as "path"; S1's and
@@ -149,7 +165,8 @@ S2's on phase 5's sign path; each kernel's launches in phase 6's waves
 as "live_ingest_launches"; R1's and R2's on phase 7's routing path; each
 kernel's launches in phase 8's six replays as
 "supervised_replay_launches"; R1's and R2's in phase 9 as
-"supervised_routing_launches"; the fault replay's and the supervised
+"supervised_routing_launches"; K1-K3's in phase 10's replay and
+flushes as "peer_gossip_launches"; the fault replay's and the supervised
 sign and check's only in the log), the
 nvidia-smi name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Exits non-zero with
@@ -2159,6 +2176,390 @@ def supervised_routing(args, g, dev, card, torch, kernel_rate, flush_ms7):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: peer gossip
+
+
+PEER_KEYS = (0xA10A, 0xB10B, 0xC10C)   # nodes A, B and C
+N_LIVE, N_LIVE_BAD = 1000, 25           # C's channel_updates, corrupted
+MAX_ROUNDS = 5                          # seeker rounds for B to converge
+# the seeker's prune clock: a day past the synth store's timestamps
+SYNTH_NOW = 1_700_086_400.0
+
+
+def fresh_updates(wire, synth, E, F, info, parsed, gen, bucket, dev):
+    """N_LIVE channel_updates on distinct (channel, direction) pairs of
+    the store, each 1,000 s newer with another fee, signed on the card
+    (S2) by the direction's node; N_LIVE_BAD of them with a flipped bit
+    of r.  Returns (raws, the corrupted ones)."""
+    import dataclasses
+
+    n = info["channels"]
+    pubs = E.derive_pubkeys(F.from_int_array(info["seckeys"]).numpy(),
+                            bucket, device=dev)
+    key_of = {bytes(pk): d for pk, d in zip(pubs, info["seckeys"])}
+    picks = gen.choice(2 * n, N_LIVE, replace=False)
+    msgs, hashes, keys = [], [], []
+    for pick in picks:
+        c, d = divmod(int(pick), 2)
+        p, ca = parsed[n + pick], parsed[c]
+        assert (p.short_channel_id, p.direction) == (ca.short_channel_id, d)
+        m = bytearray(dataclasses.replace(
+            p, timestamp=p.timestamp + 1000,
+            fee_base_msat=(p.fee_base_msat + 1) % 5000).serialize())
+        msgs.append(m)
+        hashes.append(hashlib.sha256(hashlib.sha256(
+            bytes(m[wire.CU_SIGNED_OFFSET:])).digest()).digest())
+        keys.append(key_of[(ca.node_id_1, ca.node_id_2)[d]])
+    sigs = synth.sign_bulk(hashes, keys, gen, dev)
+    bad = set(gen.choice(N_LIVE, N_LIVE_BAD, replace=False).tolist())
+    out, corrupt = [], set()
+    for i, (m, sig) in enumerate(zip(msgs, sigs)):
+        sig = bytearray(sig.tobytes())
+        if i in bad:
+            sig[31] ^= 1                        # as synth corrupts r
+        m[wire.CU_SIG_OFFSET:wire.CU_SIG_OFFSET + 64] = sig
+        out.append(bytes(m))
+        if i in bad:
+            corrupt.add(out[-1])
+    return out, corrupt
+
+
+def accepted_view(g):
+    """A gossipd's accepted set: channels, updates by (scid, direction)
+    and node announcements, with their timestamps."""
+    ing = g.ingest
+    return set(ing.channels), dict(ing.updates), dict(ing.nodes)
+
+
+def peer_gossip(args, gen, dev, card, torch, H, tmpdir):
+    """Phase 10; returns K1-K3's launches in it and its figures."""
+    import collections
+    import contextvars
+    import random
+
+    from lightning_tpu_torch import obs
+    from lightning_tpu_torch.crypto import chachapoly as AEAD
+    from lightning_tpu_torch.crypto import engines as E
+    from lightning_tpu_torch.crypto import field as F
+    from lightning_tpu_torch.daemon.node import LightningNode
+    from lightning_tpu_torch.gossip import gossipd as GD
+    from lightning_tpu_torch.gossip import ingest as I
+    from lightning_tpu_torch.gossip import seeker as SK
+    from lightning_tpu_torch.gossip import store as ST
+    from lightning_tpu_torch.gossip import synth
+    from lightning_tpu_torch.gossip import verify as V
+    from lightning_tpu_torch.gossip import wire
+
+    t_phase = time.perf_counter()
+    src = os.path.join(tmpdir, "peer_src.gs")
+    info = synth.make_network_store(src, args.ingest_channels,
+                                    args.ingest_nodes, seed=args.seed,
+                                    device=dev)
+    raws, parsed, _, _ = ingest_messages(wire, src, info)
+    live, corrupt = fresh_updates(wire, synth, E, F, info, parsed, gen,
+                                  args.bucket, dev)
+    log(f"peer gossip: A's store {len(raws)} messages ({info['channels']} "
+        f"CA, {info['channel_updates']} CU, {info['nodes']} NA; "
+        f"{info['sigs']} signatures) and C's {len(live)} fresh updates "
+        f"({len(corrupt)} corrupted) made in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # every kernel launch inside the phase, timed by CUDA events and
+    # booked to the flush or replay that made it: the ingests' flush
+    # loops and the replays run under their own context (asyncio.to_thread
+    # carries it into the verify's worker thread)
+    owner = contextvars.ContextVar("owner", default="other")
+    events_by = collections.defaultdict(list)
+    launch = H._launch
+
+    def timed_launch(name, *tensors, B, entry=None):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        launch(name, *tensors, B=B, entry=entry)
+        b.record()
+        events_by[owner.get()].append((name, a, b))
+
+    aead = {"s": 0.0, "calls": 0}
+    enc, dec = AEAD.encrypt, AEAD.decrypt
+
+    def timed(fn):
+        def call(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                aead["s"] += time.perf_counter() - t
+                aead["calls"] += 1
+        return call
+
+    rounds, flushes_b, replay, store_s, lags = [], [], {}, [], []
+    waits, drains = [], []
+    verify_store = V.verify_store
+
+    def timed_verify_store(idx, *a, **kw):
+        t = time.perf_counter()
+        res = verify_store(idx, *a, **kw)
+        replay.update(s=time.perf_counter() - t, sigs=res.n_sigs,
+                      buckets=res.buckets)
+        return res
+
+    async def run():
+        na, nb, nc = (LightningNode(privkey=k) for k in PEER_KEYS)
+        ga = GD.Gossipd(na, os.path.join(tmpdir, "peer_a.gs"), device=dev)
+        gb = GD.Gossipd(nb, os.path.join(tmpdir, "peer_b.gs"), device=dev)
+        flush_b = gb.ingest.flush
+
+        async def timed_flush():
+            n = gb.ingest._queued_sigs
+            t = time.perf_counter()
+            await flush_b()
+            if n:
+                flushes_b.append((n, time.perf_counter() - t))
+
+        gb.ingest.flush = timed_flush
+        append_b = gb.ingest.writer.append_many
+
+        def timed_append(*a, **kw):
+            t = time.perf_counter()
+            append_b(*a, **kw)
+            store_s.append(time.perf_counter() - t)
+
+        gb.ingest.writer.append_many = timed_append
+
+        async def watch_loop():
+            """The event loop's lag: how late a 1 ms sleep wakes."""
+            while True:
+                t = time.perf_counter()
+                await asyncio.sleep(0.001)
+                lags.append(time.perf_counter() - t - 0.001)
+
+        out = {}
+        try:
+            # A: the store replayed through K1-K3 on the card
+            tok = owner.set("A replay")
+            V.verify_store = timed_verify_store
+            t0 = time.perf_counter()
+            try:
+                n_loaded = ga.load_existing(src, verify=True)
+            finally:
+                V.verify_store = verify_store
+            out["load_s"] = time.perf_counter() - t0
+            owner.reset(tok)
+            assert n_loaded == len(raws), "A's store did not load whole"
+            for g, who in ((ga, "A"), (gb, "B")):
+                tok = owner.set(who)
+                g.start()
+                owner.reset(tok)
+
+            # B: blank, dials A over loopback Noise; its seeker syncs
+            port = await na.listen()
+            await nb.connect("127.0.0.1", port, na.node_id)
+            wait_b = gb.ingest.wait_capacity
+
+            async def timed_wait(max_wait=None):
+                waited = await wait_b(max_wait)
+                waits.append(waited)
+                return waited
+
+            gb.ingest.wait_capacity = timed_wait
+            while nb.node_id not in na.peers:    # A's side of the init
+                await asyncio.sleep(0.005)
+            writer_a = na.peers[nb.node_id].stream.writer
+            drain_a = writer_a.drain
+
+            async def timed_drain():
+                t = time.perf_counter()
+                await drain_a()
+                drains.append(time.perf_counter() - t)
+
+            writer_a.drain = timed_drain
+            sk = SK.Seeker(gb, rng=random.Random(args.seed),
+                           clock=lambda: SYNTH_NOW)
+            want = accepted_view(ga)
+            watch = asyncio.get_running_loop().create_task(watch_loop())
+            for r in range(MAX_ROUNDS):
+                st, ov = gb.ingest.stats, gb.ingest.overload
+                s0 = (st.batched_sigs, st.flushes, st.accepted,
+                      st.dropped.get(I.R_SHED, 0), dict(ov.shed_counts))
+                state = sk.state
+                t0 = time.perf_counter()
+                await sk.tick()
+                await gb.ingest.drain()
+                dt = time.perf_counter() - t0
+                sheds = st.dropped.get(I.R_SHED, 0) - s0[3]
+                by = {f"{p}:{why}": n - s0[4].get((p, why), 0)
+                      for (p, why), n in ov.shed_counts.items()
+                      if n - s0[4].get((p, why), 0)}
+                got = accepted_view(gb)
+                rounds.append({
+                    "state": state, "seconds": dt,
+                    "sigs": st.batched_sigs - s0[0],
+                    "flushes": st.flushes - s0[1],
+                    "accepted": st.accepted - s0[2], "sheds": sheds,
+                    "missing": (len(want[0] - got[0]),
+                                len(set(want[1].items())
+                                    - set(got[1].items())),
+                                len(set(want[2].items())
+                                    - set(got[2].items())))})
+                rr = rounds[-1]
+                log(f"  round {r + 1} ({state}): {dt:.2f} s, "
+                    f"{rr['sigs']} signatures in {rr['flushes']} flushes "
+                    f"({rr['sigs'] / dt:.0f} sig/s), {rr['accepted']} "
+                    f"accepted, {sheds} shed {json.dumps(by)}; B misses "
+                    f"(channels, updates, nodes) {rr['missing']}")
+                if got == want:
+                    break
+            watch.cancel()
+            assert accepted_view(gb) == want, \
+                f"B short of A after {len(rounds)} seeker rounds"
+
+            # C: 1,000 fresh updates to A, 25 corrupted; A fans the good
+            # ones out to B under B's timestamp filter
+            sa, sb = ga.ingest.stats, gb.ingest.stats
+            a0 = (sa.accepted, sa.dropped.get(I.R_BADSIG, 0))
+            b0 = (sb.accepted, sb.dropped.get(I.R_BADSIG, 0))
+            peer_ca = await nc.connect("127.0.0.1", port, na.node_id)
+            t0 = time.perf_counter()
+            for raw in live:
+                await peer_ca.send_raw(raw)
+            keys, good = {}, {}
+            for raw in live:
+                p = wire.parse_gossip(raw)
+                k = (p.short_channel_id, p.direction)
+                keys[k] = p.timestamp
+                if raw not in corrupt:
+                    good[k] = p.timestamp
+            deadline = time.perf_counter() + 120
+            while time.perf_counter() < deadline and not (
+                    sa.dropped.get(I.R_BADSIG, 0) - a0[1] >= N_LIVE_BAD
+                    and all(gb.ingest.updates.get(k) == ts
+                            for k, ts in good.items())):
+                await asyncio.sleep(0.02)
+            await ga.ingest.drain()
+            await gb.ingest.drain()
+            out["live_s"] = time.perf_counter() - t0
+            await asyncio.sleep(0.2)             # any straggler fan-out
+            await gb.ingest.drain()
+            a_acc = sa.accepted - a0[0]
+            a_bad = sa.dropped.get(I.R_BADSIG, 0) - a0[1]
+            b_acc = sb.accepted - b0[0]
+            b_bad = sb.dropped.get(I.R_BADSIG, 0) - b0[1]
+            log(f"  live: C sent {len(live)} updates to A in "
+                f"{out['live_s']:.2f} s to B's last acceptance; A accepted "
+                f"{a_acc}, rejected {a_bad} bad signatures; B accepted "
+                f"{b_acc}, rejected {b_bad}")
+            assert (a_acc, a_bad) == (N_LIVE - N_LIVE_BAD, N_LIVE_BAD), \
+                "A's live acceptance"
+            assert (b_acc, b_bad) == (N_LIVE - N_LIVE_BAD, 0), \
+                "B's live acceptance"
+            for k, ts in keys.items():
+                want_ts = ts if k in good else ts - 1000
+                assert ga.ingest.updates[k] == want_ts, f"A at {k}"
+                assert gb.ingest.updates[k] == want_ts, f"B at {k}"
+            assert accepted_view(gb) == accepted_view(ga), \
+                "B's accepted set differs from A's after the live wave"
+            out["flushes"] = {"A": sa.flushes, "B": sb.flushes}
+        finally:
+            for x in (ga, gb, na, nb, nc):
+                await x.close()
+        return out
+
+    snap0 = obs.snapshot()
+    torch.cuda.synchronize()
+    H.reset_launches()
+    H._launch = timed_launch
+    AEAD.encrypt, AEAD.decrypt = timed(enc), timed(dec)
+    try:
+        out = asyncio.run(run())
+    finally:
+        H._launch = launch
+        AEAD.encrypt, AEAD.decrypt = enc, dec
+    counts = H.launch_counts()
+    snap1 = obs.snapshot()
+    t_main = time.perf_counter() - t_phase
+
+    # B's store read back on the card: all valid, and the messages of
+    # A's store and of A's live store, each once
+    tok = owner.set("B readback")
+    idx = ST.load_store(os.path.join(tmpdir, "peer_b.gs"))
+    res = V.verify_store(idx, args.bucket, device=dev)
+    owner.reset(tok)
+    a_live = ST.load_store(os.path.join(tmpdir, "peer_a.gs"))
+    b_msgs = collections.Counter(idx.message(i) for i in range(len(idx)))
+    a_msgs = collections.Counter(raws + [a_live.message(i)
+                                         for i in range(len(a_live))])
+    log(f"  B's store: {len(idx)} records, replay "
+        f"{int(res.sig_ok.sum())}/{res.n_sigs} true on the card; A's "
+        f"store {len(raws)} + {len(a_live)} live records")
+    assert res.sig_ok.all() and idx.check_crcs().all(), "B's store replay"
+    assert b_msgs == a_msgs, "B's store holds other messages than A's"
+    assert not set(b_msgs) & corrupt
+
+    n_sigs = info["sigs"]
+    torch.cuda.synchronize()
+    ms = collections.defaultdict(collections.Counter)
+    n_by = collections.defaultdict(collections.Counter)
+    for who, evs in events_by.items():
+        for name, a, b in evs:
+            ms[who][name] += a.elapsed_time(b)
+            n_by[who][name] += 1
+    main = ENGINE_KERNELS[MAIN]
+    by_wrapper = {WRAPPER.get(k, k): k for k in SOURCES}
+    booked = {w: sum(n_by[who][by_wrapper[w]] for who in n_by
+                     if who != "B readback") for w in counts}
+    log(f"  launches (K1-K3 once a flush or replay bucket; CUDA events, "
+        f"ms): " + json.dumps({who: {k: [n_by[who][k], round(ms[who][k], 4)]
+                                     for k in n_by[who]} for who in n_by}))
+    assert counts == booked, "launches outside a flush or replay"
+    assert replay["sigs"] == n_sigs, "A's replay"
+    for who, n in (("A replay", replay["buckets"]),
+                   ("A", out["flushes"]["A"]),
+                   ("B", out["flushes"]["B"])):
+        for w in counts:
+            k = by_wrapper[w]
+            assert n_by[who][k] == n * (w in main), \
+                f"{who}: {k} launched {n_by[who][k]} times, not {n}"
+    assert all(n_by["B"][by_wrapper[w]] > 0 for w in main), \
+        "B's flushes launched no kernel"
+
+    fl = np.array([f[1] for f in flushes_b])
+    sizes = np.array([f[0] for f in flushes_b])
+    lag = np.array(lags) * 1e3
+    log(f"  B's flushes: signatures p10 {pct(sizes, 10):.0f}, p50 "
+        f"{pct(sizes, 50):.0f}, p90 {pct(sizes, 90):.0f}, max "
+        f"{sizes.max(initial=0)}; store appends (fsync'd) "
+        f"{sum(store_s):.2f} s in all, p50 {pct(store_s, 50) * 1e3:.1f} "
+        f"ms; the event loop during the sync: {len(lag)} 1 ms sleeps, late "
+        f"p50 {pct(lag, 50):.2f} ms, p99 {pct(lag, 99):.2f} ms, max "
+        f"{lag.max(initial=0):.1f} ms")
+    w, dr = np.array(waits), np.array(drains)
+    log(f"  B's backpressure (wait_capacity): {int((w > 0).sum())} waits of "
+        f"{len(w)}, {w.sum():.2f} s in all; A's sends to B: {len(dr)} "
+        f"drains, {int((dr > 1e-3).sum())} over 1 ms, {dr.sum():.2f} s in "
+        f"all; the ingests' overload transitions "
+        f"{by_label(snap1, snap0, 'clntpu_overload_transitions_total')}")
+    nbytes = {d: delta(snap1, snap0, "clntpu_peer_bytes_total", direction=d)
+              for d in ("in", "out")}
+    sync_s = sum(r["seconds"] for r in rounds)
+    log(f"peer gossip on {card}: A's replay (verify_store) "
+        f"{replay['s']:.3f} s ({n_sigs / replay['s']:.0f} sig/s, "
+        f"{replay['buckets']} bucket(s)), load_existing {out['load_s']:.2f} "
+        f"s ({n_sigs / out['load_s']:.0f} sig/s); B's sync {len(rounds)} "
+        f"round(s), {sync_s:.2f} s ("
+        + ", ".join(f"{r['sigs'] / r['seconds']:.0f}" for r in rounds)
+        + " sig/s a round); B's flushes p50 "
+        f"{pct(fl, 50) * 1e3:.1f} ms, p99 {pct(fl, 99) * 1e3:.1f} ms, "
+        f"{len(fl)} flushes; Noise bytes in {nbytes['in']:.0f}, out "
+        f"{nbytes['out']:.0f}; the AEAD {aead['calls']} calls, "
+        f"{aead['s']:.3f} s, {aead['s'] / t_main * 100:.2f} % of the phase; "
+        f"phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return ({w: booked[w] for w in counts},
+            {"replay_s": replay["s"], "load_s": out["load_s"],
+             "rounds": rounds,
+             "aead_s": aead["s"], "bytes": nbytes})
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 timing
 
 
@@ -2195,9 +2596,11 @@ def main(argv=None) -> int:
     ap.add_argument("--commitments", type=int, default=136,
                     help="commitments of the bulk fan-out in phase 5")
     ap.add_argument("--ingest-channels", type=int, default=10_000,
-                    help="channels of phase 6's live ingest")
+                    help="channels of phase 6's live ingest and phase 10's "
+                         "peer gossip")
     ap.add_argument("--ingest-nodes", type=int, default=1_250,
-                    help="nodes of phase 6's live ingest")
+                    help="nodes of phase 6's live ingest and phase 10's "
+                         "peer gossip")
     ap.add_argument("--ingest-runs", type=int, default=1,
                     help="times phase 6 runs (its spread is printed)")
     ap.add_argument("--mainnet", action="store_true",
@@ -2601,6 +3004,14 @@ def main(argv=None) -> int:
                                 Bk / (k_ms / 1e3), flush_ms)
     for rec in kernels:
         rec["supervised_routing_launches"] = counts.get(
+            WRAPPER.get(rec["name"], rec["name"]), 0)
+
+    # -- phase 10: peer gossip at the width of a 10k-channel node; K1-K3's
+    # launches in A's replay and the two nodes' flushes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_peer_") as d:
+        counts, _ = peer_gossip(args, gen, dev, card, torch, H, d)
+    for rec in kernels:
+        rec["peer_gossip_launches"] = counts.get(
             WRAPPER.get(rec["name"], rec["name"]), 0)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

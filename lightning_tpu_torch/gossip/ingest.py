@@ -144,7 +144,7 @@ class GossipIngest:
     def __init__(self, store_path: str, *, utxo_check=None,
                  flush_size: int = 256, flush_ms: float = 2.0,
                  bucket: int = gverify.DEFAULT_BUCKET,
-                 on_accept=None, now=time.monotonic,
+                 on_accept=None, on_shed=None, now=time.monotonic,
                  own_node_id: bytes | None = None,
                  high_wm: int | None = None, low_wm: int | None = None,
                  pending_cap: int | None = None,
@@ -168,6 +168,9 @@ class GossipIngest:
         # bound of one verify dispatch (None: none)
         self.deadline_s = deadline_s
         self.on_accept = on_accept        # callback(raw, source)
+        # callback(kind, parsed, source) for every shed message: the
+        # caller may ask its source for it again
+        self.on_shed = on_shed
         self.now = now
         self.stats = IngestStats()
 
@@ -239,7 +242,7 @@ class GossipIngest:
         n_sigs = 4 if kind == wire.MSG_CHANNEL_ANNOUNCEMENT else 1
         if not self.overload.admit(prio, n_sigs):
             self.stats.drop(R_SHED)
-            self.overload.shed(prio, "queue_full", **_shed_key(kind, parsed))
+            self._shed(prio, "queue_full", kind, parsed, source)
             jk, jkey = _journey_entity(kind, parsed)
             _journey.hop("shed", jk, jkey, outcome=R_SHED,
                          reason="queue_full")
@@ -266,6 +269,14 @@ class GossipIngest:
             self._wakeup.set()
         if self._queued_sigs >= self._flush_threshold():
             self._wakeup.set()
+
+    def _shed(self, prio: int, reason: str, kind: int, parsed,
+              source) -> None:
+        """Record one shed message with the overload controller and hand
+        it to ``on_shed``."""
+        self.overload.shed(prio, reason, **_shed_key(kind, parsed))
+        if self.on_shed is not None:
+            self.on_shed(kind, parsed, source)
 
     def _flush_threshold(self) -> int:
         """flush_size when calm, widening toward flush_size *
@@ -322,9 +333,8 @@ class GossipIngest:
                 if prev is None:
                     if self._pending_held >= self.pending_cap:
                         self.stats.drop(R_SHED)
-                        self.overload.shed(self._priority(kind, parsed),
-                                           "pending_cap",
-                                           **_shed_key(kind, parsed))
+                        self._shed(self._priority(kind, parsed),
+                                   "pending_cap", kind, parsed, source)
                         _journey.hop("shed", "channel",
                                      parsed.short_channel_id,
                                      outcome=R_SHED, reason="pending_cap")
@@ -577,8 +587,7 @@ class GossipIngest:
                     if prio != _overload.PRIO_OWN and \
                             self._pending_held >= self.pending_cap:
                         self.stats.drop(R_SHED)
-                        self.overload.shed(prio, "pending_cap",
-                                           **_shed_key(kind, p))
+                        self._shed(prio, "pending_cap", kind, p, it.source)
                         return
                     self.pending_nodes[nid] = it
                     self._pending_held += 1

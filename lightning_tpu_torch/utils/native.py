@@ -17,7 +17,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_ROOT, "native")
 _BUILD_DIR = os.path.join(_ROOT, "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libgossip_native.so")
-_SOURCES = ["crc32c.c", "gossip_native.c"]
+_SOURCES = ["crc32c.c", "gossip_native.c", "chachapoly.c"]
 _lock = threading.Lock()
 _lib = None
 
@@ -54,6 +54,13 @@ def get_lib() -> ctypes.CDLL:
             lib.gather_fields.restype = None
             lib.gather_fields.argtypes = [vp, vp, ctypes.c_size_t,
                                           ctypes.c_uint64, ctypes.c_uint32, vp]
+            cp, sz = ctypes.c_char_p, ctypes.c_size_t
+            lib.chacha20_xor16.restype = None
+            lib.chacha20_xor16.argtypes = [cp, cp, cp, vp, sz]
+            lib.chachapoly_encrypt.restype = None
+            lib.chachapoly_encrypt.argtypes = [cp, cp, cp, sz, cp, sz, vp]
+            lib.chachapoly_decrypt.restype = ctypes.c_int
+            lib.chachapoly_decrypt.argtypes = [cp, cp, cp, sz, cp, sz, vp]
             _lib = lib
     return _lib
 

@@ -878,3 +878,57 @@ def test_sample_device_memory_reads_the_caching_allocator(cuda):
     assert stats["bytes_reserved"] >= stats["bytes_in_use"]
     assert stats["bytes_limit"] == torch.cuda.mem_get_info()[1]
     del x
+
+
+def test_peer_gossip_sync_on_card(cuda, tmp_path):
+    """Two port nodes over loopback Noise, both verifying on the card: A
+    replays a 200-channel store through K1-K3, blank B syncs it with its
+    seeker (at most 5 rounds); B's accepted set equals A's, and K1-K3
+    launched once a flush of B's."""
+    import asyncio
+    import random
+
+    from lightning_tpu_torch.daemon.node import LightningNode
+    from lightning_tpu_torch.gossip import gossipd as GD
+    from lightning_tpu_torch.gossip import seeker as SK
+    from lightning_tpu_torch.gossip import synth
+
+    src = str(tmp_path / "src.gs")
+    info = synth.make_network_store(src, 200, 40, seed=11, device=cuda)
+
+    def view(g):
+        return (set(g.ingest.channels), dict(g.ingest.updates),
+                dict(g.ingest.nodes))
+
+    async def body():
+        na, nb = LightningNode(privkey=0xA1), LightningNode(privkey=0xB1)
+        ga = GD.Gossipd(na, str(tmp_path / "a.gs"), device=cuda)
+        gb = GD.Gossipd(nb, str(tmp_path / "b.gs"), device=cuda)
+        H.reset_launches()
+        assert ga.load_existing(src, verify=True) == 200 + 400 + 40
+        assert H.launch_counts()["glv_scan"] == 1
+        H.reset_launches()
+        ga.start()
+        gb.start()
+        try:
+            port = await na.listen()
+            await nb.connect("127.0.0.1", port, na.node_id)
+            sk = SK.Seeker(gb, rng=random.Random(1),
+                           clock=lambda: 1_700_086_400.0)
+            for _ in range(5):
+                await sk.tick()
+                await gb.ingest.drain()
+                if view(gb) == view(ga):
+                    break
+            assert view(gb) == view(ga)
+            assert len(gb.ingest.channels) == info["channels"]
+            flushes = gb.ingest.stats.flushes
+            assert flushes > 0 and ga.ingest.stats.flushes == 0
+            assert H.launch_counts() == {
+                k.__name__: flushes * (k.__name__ in ENGINE_KERNELS[
+                    "pallas_fbj+pp"]) for k in H.KERNELS}
+        finally:
+            for x in (ga, gb, na, nb):
+                await x.close()
+
+    asyncio.run(asyncio.wait_for(body(), 300))

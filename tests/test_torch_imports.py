@@ -1,8 +1,9 @@
 """The port stands alone and never picks the CPU on its own.
 
 Importing lightning_tpu_torch and every module under it must leave jax,
-lightning_tpu and lightning_tpu.* out of sys.modules; this runs in a fresh
-interpreter, because tests/conftest.py imports jax for the whole session.
+lightning_tpu, lightning_tpu.* and cryptography out of sys.modules; this runs
+in a fresh interpreter, because tests/conftest.py imports jax for the whole
+session.
 Entry points default to the card and raise without one unless the caller
 asks for the CPU."""
 from __future__ import annotations
@@ -42,7 +43,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
-             or m == "lightning_tpu" or m.startswith("lightning_tpu."))
+             or m == "lightning_tpu" or m.startswith("lightning_tpu.")
+             or m == "cryptography" or m.startswith("cryptography."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -87,7 +89,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "lightning_tpu_torch.obs.traceexport",
                 "lightning_tpu_torch.obs.incident",
                 "lightning_tpu_torch.resilience.faultinject",
-                "lightning_tpu_torch.resilience.quarantine"):
+                "lightning_tpu_torch.resilience.quarantine",
+                "lightning_tpu_torch.crypto.chachapoly",
+                "lightning_tpu_torch.wire.codec",
+                "lightning_tpu_torch.wire.messages",
+                "lightning_tpu_torch.bolt.noise",
+                "lightning_tpu_torch.daemon.features",
+                "lightning_tpu_torch.daemon.hooks",
+                "lightning_tpu_torch.daemon.transport",
+                "lightning_tpu_torch.daemon.tor",
+                "lightning_tpu_torch.daemon.peer",
+                "lightning_tpu_torch.daemon.node",
+                "lightning_tpu_torch.gossip.gossipd",
+                "lightning_tpu_torch.gossip.seeker"):
         assert mod in got["modules"]
 
 

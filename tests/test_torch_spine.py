@@ -34,6 +34,7 @@ from lightning_tpu.obs import journey as JJ
 from lightning_tpu.obs import registry as JR
 from lightning_tpu.obs import traceexport as JX
 from lightning_tpu.resilience import breaker as JB
+from lightning_tpu.resilience import overload as JOV
 from lightning_tpu.utils import events as JEV
 from lightning_tpu.utils import trace as JT
 from lightning_tpu_torch.obs import attribution as TA
@@ -44,6 +45,7 @@ from lightning_tpu_torch.obs import journey as TJ
 from lightning_tpu_torch.obs import registry as TR
 from lightning_tpu_torch.obs import traceexport as TX
 from lightning_tpu_torch.resilience import breaker as TB
+from lightning_tpu_torch.resilience import overload as TOV
 from lightning_tpu_torch.utils import events as TEV
 from lightning_tpu_torch.utils import trace as TT
 
@@ -53,10 +55,13 @@ PORT = dict(J=TJ, A=TA, H=TH, X=TX, I=TI, R=TR, B=TB, EV=TEV, T=TT, FL=TFL)
 
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
+    """The subsystems the reports and bundles read are process-global:
+    other tests of the worker leave breakers, flight rings and overload
+    controllers behind, in one package or the other."""
     for k in ("LIGHTNING_TPU_JOURNEY_SAMPLE", "LIGHTNING_TPU_JOURNEY_MAX",
               "LIGHTNING_TPU_JOURNEY_HOPS"):
         monkeypatch.delenv(k, raising=False)
-    mods = (JJ, JA, JB, JFL, JH, JI, TJ, TA, TB, TFL, TH, TI)
+    mods = (JJ, JA, JB, JFL, JH, JI, JOV, TJ, TA, TB, TFL, TH, TI, TOV)
     for m in mods:
         m.reset_for_tests()
     yield
